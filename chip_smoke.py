@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CKKS slice on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's two CKKS slices on one NVIDIA GPU.
 
 Run from the root of the repository, with no arguments:
 
@@ -9,23 +9,32 @@ Phases, each of which exits non-zero on failure (nothing is caught and
 turned into a pass, and nothing runs on the CPU when there is no card):
 
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: every kernel of tpu_fhe_torch/csrc, one nvcc each, in parallel;
- 3. kernels: each kernel against its plain torch version on the card, at
-    the full-width shapes of the slice (N = 2^15, 30 + 15 limbs, chain
-    index 1), integer-exact, with its device time (CUDA events around a
-    CUDA-graph replay of 20 launches), the plain version's time and the
-    least time the card could take;
- 4. slice: bench.py's primary configuration, keys, then 4 requests of
-    encode -> encrypt (symmetric and asymmetric) -> multiply ->
-    relinearize -> rescale -> decrypt -> decode, each within 1e-6 of the
-    cleartext product; every kernel's launch counter must have risen;
-    one relinearize is held bit-exact against the plain versions on the
-    card;
+ 2. build: every kernel of tpu_fhe_torch/csrc, one nvcc each, in parallel.
+
+Then, for each slice in turn -- the u64 plan (bench.py's primary
+configuration: N = 2^15, 30 + 15 primes of 50/60 bits, scale 2^50) and the
+q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
+29 data pairs: 60 + 30 primes of 29-30 bits, scale 2^58) --
+
+ 3. kernels: each kernel of the slice against its plain torch version on
+    the card, at the slice's full-width keyswitch shapes, integer-exact,
+    with its device time (CUDA events around a CUDA-graph replay of 20
+    launches), the plain version's time and the least time the card could
+    take; on the q32 plan also K4 and K5 against K1 and K2 on the same
+    30-bit moduli;
+ 4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
+    asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
+    a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
+    the cleartext product; every kernel of the slice must have been
+    launched during the requests (its counter is set to 0 just before);
+    one relinearize is held bit-exact against the plain versions;
  5. timing: keyswitch ms/op and keyswitch/s (relinearize of a random
     size-3 ciphertext, bench.py's median-of-pairs marginal), launches per
     relinearize, and a device-only torch.profiler window of 10
-    relinearizes: kernel time by name and the device's busy share;
- 6. the kernels line, then the last line {"ok": true, "device": {...}}.
+    relinearizes: kernel time by name and the device's busy share.
+
+Last, the kernels line (every kernel of both slices) and the line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -41,6 +50,11 @@ N = 1 << 15
 BITS = [60] + [50] * 29 + [60] * 15      # bench.py primary config
 SPECIAL = 15
 SCALE = 2.0 ** 50
+# the q32 plan: examples/bootstrap_ckks.py's and benchmarks/mult_q32_check.py's
+# builder at bench.py's q32 keyswitch limb counts (60 Q + 30 P limbs)
+COMPOSITE = dict(scale_bits=58, levels=29, degree=2, anchor_bits=30, special_bits=30,
+                 special_count=30)
+SCALE32 = 2.0 ** 58
 REQUESTS = 4
 TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
@@ -48,6 +62,8 @@ HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
 # FFMA per SM and clock, so half of the 67 TFLOP/s float32 peak.
 INT32_OPS_PER_S = 67e12 / 2
 IMAD_PER_MUL64 = 4                       # one 64x64 product (lo or hi) in 32-bit IMADs
+IMAD_PER_MUL32 = 1                       # one 32x32 product (lo or hi)
+IMAD_PER_WIDE32 = 2                      # one 32x32 -> 64 product (IMAD.WIDE)
 
 
 def log(*a):
@@ -89,9 +105,9 @@ def cuda_ms(fn, reps: int, samples: int = 5, graph: bool = False) -> float:
     return float(np.median(out))
 
 
-def bound_ms(nbytes: float, mul64: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, imads: float) -> tuple[float, str]:
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = mul64 * IMAD_PER_MUL64 / INT32_OPS_PER_S * 1e3
+    t_ops = imads / INT32_OPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -101,14 +117,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
     try:
-        from tpu_fhe_torch.core.modulus import CoeffModulus
-        from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
-        from tpu_fhe_torch.eval import evaluator as ev
-        from tpu_fhe_torch.ops import _build, bconv, ks, modarith as mm, ntt
-        from tpu_fhe_torch.scheme.ciphertext import Ciphertext
-        from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
-        from tpu_fhe_torch.scheme.context import FheContext
-        from tpu_fhe_torch.scheme.keys import SecretKey, encrypt_asymmetric
+        from tpu_fhe_torch.ops import _build
     except ImportError as e:
         fail(f"the port is not importable ({e}); run from the repository root")
 
@@ -134,6 +143,102 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
+    line = u64_slice(card) + q32_slice(card)
+    print(json.dumps({"kernels": line}), flush=True)
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                             "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+class Checker:
+    """Holds kernels against their plain versions and keeps each kernel's
+    report (shapes checked, headline times and bound)."""
+
+    def __init__(self, kernels):
+        self.kernels = {k.name: k for k in kernels}
+        self.report = {name: {"checks": []} for name in self.kernels}
+
+    def check(self, name, shape, kernel_fn, plain_fn, nbytes, imads, headline=False):
+        import torch
+
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        if got.shape != want.shape or got.dtype != want.dtype:
+            fail(f"{name} {shape}: kernel {tuple(got.shape)} {got.dtype} != plain "
+                 f"{tuple(want.shape)} {want.dtype}")
+        err = int((got.to(torch.int64) - want.to(torch.int64)).abs().max().item())
+        if err != 0:
+            fail(f"{name} {shape}: kernel differs from its plain version (max |diff| {err})")
+        ms = cuda_ms(kernel_fn, reps=20, graph=True)
+        called = cuda_ms(kernel_fn, reps=20)
+        plain = cuda_ms(plain_fn, reps=1, samples=3)
+        bms, by = bound_ms(nbytes, imads)
+        log(f"[kernel] {name} {shape}: max|diff|=0  {ms:.4f} ms (graph replay; "
+            f"{called:.4f} ms called from Python)  plain {plain:.3f} ms  "
+            f"bound {bms:.4f} ms ({by})")
+        entry = self.report[name]
+        entry["checks"].append(shape)
+        if headline or "ms" not in entry:
+            entry.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
+
+    def reset(self):
+        for k in self.kernels.values():
+            k.launches = 0
+
+    def launches(self) -> dict:
+        return {name: k.launches for name, k in self.kernels.items()}
+
+    def line(self, launches: dict) -> list:
+        out = []
+        for name, k in self.kernels.items():
+            e = self.report[name]
+            file_line, _, _ = k.replaces.partition(" ")
+            out.append({
+                "name": name, "route": "cuda", "source": f"tpu_fhe_torch/csrc/{k.source}",
+                "replaces": file_line, "launches": launches[name], "max_abs_err": 0,
+                "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
+                "bound_by": e["bound_by"], "library_ms": None, "shapes": e["checks"],
+            })
+        return out
+
+
+def residue_maker(dev, n: int, seed: int):
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def residues(q: torch.Tensor, *lead: int) -> torch.Tensor:
+        """Uniform residues (*lead, L, N) for moduli q (L, 1), in q's word."""
+        x = torch.randint(0, 1 << 62, lead + (q.shape[0], n), generator=gen,
+                          dtype=torch.int64, device=dev)
+        return (x % q.to(torch.int64)).to(q.dtype)
+    return residues
+
+
+def ntt_cost(word: int, rows: int, limbs: int, extra_muls: int = 0, tables: int = 2):
+    """Bytes (data in and out, `tables` twiddle planes per limb) and IMADs
+    (log2 N butterfly stages of one Shoup multiply, 3 products each, plus
+    `extra_muls` Shoup multiplies per element) of a transform."""
+    per_mul = IMAD_PER_MUL64 if word == 8 else IMAD_PER_MUL32
+    nbytes = word * N * (2 * rows + tables * limbs)
+    imads = (rows * (N // 2) * (N.bit_length() - 1) + extra_muls * rows * N) * 3 * per_mul
+    return nbytes, imads
+
+
+# --------------------------------------------------------------------------
+# the u64 plan
+# --------------------------------------------------------------------------
+
+def u64_slice(card: str) -> list:
+    import torch
+
+    from tpu_fhe_torch.core.modulus import CoeffModulus
+    from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+    from tpu_fhe_torch.scheme.ciphertext import Ciphertext
+    from tpu_fhe_torch.scheme.context import FheContext
+
     # -- context (the slice's tables, also the kernels' full-width inputs)
     t0 = time.time()
     params = EncryptionParameters(SchemeType.ckks, N, tuple(CoeffModulus.create(N, BITS)),
@@ -143,86 +248,51 @@ def main() -> int:
     log(f"[context] N={N} limbs={len(BITS)} on {ctx.device}: {time.time() - t0:.1f} s")
     level = ctx.level(1)
     kst = level.ks
-    dev = ctx.device
-    gen = torch.Generator(device=dev).manual_seed(2024)
-
-    def residues(q: torch.Tensor, *lead: int) -> torch.Tensor:
-        """Uniform residues (*lead, L, N) for moduli q (L, 1)."""
-        x = torch.randint(0, 1 << 62, lead + (q.shape[0], N), generator=gen,
-                          dtype=torch.int64, device=dev)
-        return x % q
+    residues = residue_maker(ctx.device, N, 2024)
 
     # -- 3. kernels against their plain versions ---------------------------
-    kernels = {k.name: k for k in (ntt.NTT_FWD, ntt.NTT_FWD_LANDING, ntt.NTT_INV,
-                                   bconv.BCONV, ks.KS_SHOUP)}
-    report = {name: {"checks": []} for name in kernels}
-
-    def check(name, shape, kernel_fn, plain_fn, nbytes, mul64, headline=False):
-        got, want = kernel_fn(), plain_fn()
-        torch.cuda.synchronize()
-        if got.shape != want.shape:
-            fail(f"{name} {shape}: kernel shape {tuple(got.shape)} != plain {tuple(want.shape)}")
-        err = int((got - want).abs().max().item())
-        if err != 0:
-            fail(f"{name} {shape}: kernel differs from its plain version (max |diff| {err})")
-        ms = cuda_ms(kernel_fn, reps=20, graph=True)
-        called = cuda_ms(kernel_fn, reps=20)
-        plain = cuda_ms(plain_fn, reps=1, samples=3)
-        bms, by = bound_ms(nbytes, mul64)
-        log(f"[kernel] {name} {shape}: max|diff|=0  {ms:.4f} ms (graph replay; "
-            f"{called:.4f} ms called from Python)  plain {plain:.3f} ms  "
-            f"bound {bms:.4f} ms ({by})")
-        entry = report[name]
-        entry["checks"].append(shape)
-        if headline or "ms" not in entry:
-            entry.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
-
+    ck = Checker([ntt.NTT_FWD, ntt.NTT_FWD_LANDING, ntt.NTT_INV, bconv.BCONV, ks.KS_SHOUP])
     L = level.size                                      # 30
     P = kst.p_ntt.num_limbs                             # 15
     dig = kst.digits[0]
     comp = dig.comp_ntt                                 # 30 complement limbs
 
-    def ntt_bytes(rows_, limbs_, tables=2):
-        return 8 * N * (2 * rows_ + tables * limbs_)
-
-    def ntt_mul64(rows_):
-        return rows_ * (N // 2) * (N.bit_length() - 1) * 3
-
     x = residues(level.mod.q)
-    check("ntt_fwd", "(30, 2^15)", lambda: ntt.forward_ntt(x, level.ntt),
-          lambda: ntt.forward_ntt_plain(x, level.ntt), ntt_bytes(L, L), ntt_mul64(L),
-          headline=True)
+    ck.check("ntt_fwd", "(30, 2^15)", lambda: ntt.forward_ntt(x, level.ntt),
+             lambda: ntt.forward_ntt_plain(x, level.ntt), *ntt_cost(8, L, L), headline=True)
     x2 = residues(comp.q, 2)
-    check("ntt_fwd", "(2, 30, 2^15)", lambda: ntt.forward_ntt(x2, comp),
-          lambda: ntt.forward_ntt_plain(x2, comp), ntt_bytes(2 * L, L), ntt_mul64(2 * L))
+    ck.check("ntt_fwd", "(2, 30, 2^15)", lambda: ntt.forward_ntt(x2, comp),
+             lambda: ntt.forward_ntt_plain(x2, comp), *ntt_cost(8, 2 * L, L))
     sub = residues(level.mod.q, 2)
     xs = residues(level.mod.q, 2)
     args = (kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
-    check("ntt_fwd_landing", "(2, 30, 2^15)",
-          lambda: ntt.forward_ntt_sub_scale(xs, sub, level.ntt, *args),
-          lambda: ntt.forward_ntt_sub_scale_plain(xs, sub, level.ntt, *args),
-          8 * N * (3 * 2 * L + 2 * L), ntt_mul64(2 * L) + 2 * L * N * 3, headline=True)
+    ck.check("ntt_fwd_landing", "(2, 30, 2^15)",
+             lambda: ntt.forward_ntt_sub_scale(xs, sub, level.ntt, *args),
+             lambda: ntt.forward_ntt_sub_scale_plain(xs, sub, level.ntt, *args),
+             8 * N * (3 * 2 * L + 2 * L), ntt_cost(8, 2 * L, L, extra_muls=1)[1],
+             headline=True)
     scale = (kst.part_qhatinv, kst.part_qhatinv_shoup)
-    check("ntt_inv", "(30, 2^15) scaled", lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale),
-          lambda: ntt.inverse_ntt_plain(x, level.ntt, *scale), ntt_bytes(L, L),
-          ntt_mul64(L) + 2 * L * N * 3, headline=True)
+    ck.check("ntt_inv", "(30, 2^15) scaled",
+             lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale),
+             lambda: ntt.inverse_ntt_plain(x, level.ntt, *scale),
+             *ntt_cost(8, L, L, extra_muls=2), headline=True)
     xp = residues(kst.p_mod.q, 2)
     pscale = (kst.p_hatinv, kst.p_hatinv_shoup)
-    check("ntt_inv", "(2, 15, 2^15) scaled",
-          lambda: ntt.inverse_ntt_scaled(xp, kst.p_ntt, *pscale),
-          lambda: ntt.inverse_ntt_plain(xp, kst.p_ntt, *pscale), ntt_bytes(2 * P, P),
-          ntt_mul64(2 * P) + 2 * 2 * P * N * 3)
+    ck.check("ntt_inv", "(2, 15, 2^15) scaled",
+             lambda: ntt.inverse_ntt_scaled(xp, kst.p_ntt, *pscale),
+             lambda: ntt.inverse_ntt_plain(xp, kst.p_ntt, *pscale),
+             *ntt_cost(8, 2 * P, P, extra_muls=2))
     s = residues(level.mod.q[dig.start:dig.end])
     btab = (dig.qhat_mod_p, dig.comp_mod.q, dig.comp_mod.ratio_lo, dig.comp_mod.ratio_hi)
     k_in, m_out = dig.end - dig.start, dig.comp_mod.q.shape[0]
-    check("bconv", "15 -> 30, (15, 2^15)", lambda: bconv.bconv_matmul(s, *btab),
-          lambda: bconv.bconv_matmul_plain(s, *btab), 8 * N * (k_in + m_out),
-          2 * k_in * m_out * N, headline=True)
+    ck.check("bconv", "15 -> 30, (15, 2^15)", lambda: bconv.bconv_matmul(s, *btab),
+             lambda: bconv.bconv_matmul_plain(s, *btab), 8 * N * (k_in + m_out),
+             2 * k_in * m_out * N * IMAD_PER_MUL64, headline=True)
     s2 = residues(kst.p_mod.q, 2)
     mtab = (kst.p_hat_mod_q, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi)
-    check("bconv", "15 -> 30, (2, 15, 2^15)", lambda: bconv.bconv_matmul(s2, *mtab),
-          lambda: bconv.bconv_matmul_plain(s2, *mtab), 8 * N * 2 * (P + L),
-          2 * 2 * P * L * N)
+    ck.check("bconv", "15 -> 30, (2, 15, 2^15)", lambda: bconv.bconv_matmul(s2, *mtab),
+             lambda: bconv.bconv_matmul_plain(s2, *mtab), 8 * N * 2 * (P + L),
+             2 * 2 * P * L * N * IMAD_PER_MUL64)
     beta = kst.beta
     qlp = kst.qlp_q
     t = residues(qlp, beta)
@@ -230,66 +300,213 @@ def main() -> int:
     evk = residues(kq.q, 3, 2)
     evk_s = mm.shoup_of(evk, kq.q, kq.ratio_lo, kq.ratio_hi)
     rows = kst.qlp_key_rows
-    check("key_inner_prod_shoup", "(2, 45, 2^15)",
-          lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp),
-          lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp),
-          8 * N * (beta * (L + P) + 2 * 2 * beta * (L + P) + 2 * (L + P)),
-          3 * 2 * beta * (L + P) * N, headline=True)
+    ck.check("key_inner_prod_shoup", "(2, 45, 2^15)",
+             lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp),
+             lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp),
+             8 * N * (beta * (L + P) + 2 * 2 * beta * (L + P) + 2 * (L + P)),
+             3 * 2 * beta * (L + P) * N * IMAD_PER_MUL64, headline=True)
     del x, x2, sub, xs, xp, s, s2, t, evk, evk_s
 
     # -- 4. the slice: keys, then REQUESTS requests ---------------------
+    launches, products, rlk = run_requests("u64", ctx, ck, SCALE,
+                                           lambda c: ev.rescale_to_next(ctx, c))
+    got = ev.relinearize(ctx, products[0], rlk).data
+    want = plain_relinearize(ctx, level, products[0].data, rlk)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("u64 relinearize through the kernels differs from the plain versions")
+    log("[u64 slice] relinearize: kernels == plain versions, bit for bit")
+
+    # -- 5. keyswitch timing ----------------------------------------------
+    ct3 = Ciphertext(torch.stack([residues(level.mod.q) for _ in range(3)]), chain_index=1,
+                     scale=SCALE)
+    keyswitch_timing("u64", "chain index 1, 30 + 15 limbs", ctx, ct3, rlk, ck, card)
+    return ck.line(launches)
+
+
+# --------------------------------------------------------------------------
+# the q32 plan of composite scaling
+# --------------------------------------------------------------------------
+
+def q32_slice(card: str) -> list:
+    import torch
+
+    from tpu_fhe_torch.core.modulus import CoeffModulus
+    from tpu_fhe_torch.core.ntt_tables import make_ntt_tables
+    from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+    from tpu_fhe_torch.scheme.ciphertext import Ciphertext
+    from tpu_fhe_torch.scheme.context import FheContext
+
+    t0 = time.time()
+    mods = CoeffModulus.create_composite(N, **COMPOSITE)
+    params = EncryptionParameters(SchemeType.ckks, N, tuple(mods),
+                                  special_modulus_size=COMPOSITE["special_count"],
+                                  composite_degree=2, allow_insecure=True)
+    ctx = FheContext(params)
+    torch.cuda.synchronize()
+    if not ctx.is_q32:
+        fail("the composite chain is not a q32 chain")
+    log(f"[q32 context] N={N} limbs={len(mods)} ({params.size_Q} Q + {params.size_P} P, "
+        f"{min(m.value for m in mods).bit_length()}-{max(m.value for m in mods).bit_length()}"
+        f" bits) on {ctx.device}: {time.time() - t0:.1f} s")
+    residues = residue_maker(ctx.device, N, 2032)
+
+    # -- 3. kernels at the keyswitch shapes of the 59-limb level ------------
+    ck = Checker([ntt.NTT_FWD32, ntt.NTT_FWD_LANDING32, ntt.NTT_INV32, bconv.BCONV32,
+                  ks.KS_SHOUP32])
+    level = ctx.level(2)                                # 59 Q limbs
+    kst = level.ks
+    L, P = level.size, kst.p_ntt.num_limbs              # 59, 30
+    if (L, P, kst.beta) != (59, 30, 2):
+        fail(f"unexpected q32 keyswitch shape L={L} P={P} beta={kst.beta}")
+    for dt in kst.digits:                               # 30 -> 59 and 29 -> 60
+        comp = dt.comp_ntt
+        m = comp.num_limbs
+        x = residues(comp.q)
+        ck.check("ntt_fwd32", f"({m}, 2^15)", lambda: ntt.forward_ntt(x, comp),
+                 lambda: ntt.forward_ntt_plain(x, comp), *ntt_cost(4, m, m),
+                 headline=m == L)
+    x = residues(level.mod.q)
+    scale = (kst.part_qhatinv, kst.part_qhatinv_shoup)
+    ck.check("ntt_inv32", "(59, 2^15) scaled",
+             lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale),
+             lambda: ntt.inverse_ntt_plain(x, level.ntt, *scale),
+             *ntt_cost(4, L, L, extra_muls=2), headline=True)
+    xp = residues(kst.p_mod.q, 2)
+    pscale = (kst.p_hatinv, kst.p_hatinv_shoup)
+    ck.check("ntt_inv32", "(2, 30, 2^15) scaled",
+             lambda: ntt.inverse_ntt_scaled(xp, kst.p_ntt, *pscale),
+             lambda: ntt.inverse_ntt_plain(xp, kst.p_ntt, *pscale),
+             *ntt_cost(4, 2 * P, P, extra_muls=2))
+    sub, xs = residues(level.mod.q, 2), residues(level.mod.q, 2)
+    post = (kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
+    ck.check("ntt_fwd_landing32", "(2, 59, 2^15)",
+             lambda: ntt.forward_ntt_sub_scale(xs, sub, level.ntt, *post),
+             lambda: ntt.forward_ntt_sub_scale_plain(xs, sub, level.ntt, *post),
+             4 * N * (3 * 2 * L + 2 * L), ntt_cost(4, 2 * L, L, extra_muls=1)[1],
+             headline=True)
+    for dt in kst.digits:
+        k_in, m_out = dt.end - dt.start, dt.comp_mod.q.shape[0]
+        s = residues(level.mod.q[dt.start:dt.end])
+        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.fold)
+        ck.check("bconv32", f"{k_in} -> {m_out}, ({k_in}, 2^15)",
+                 lambda: bconv.bconv_matmul32(s, *tab),
+                 lambda: bconv.bconv_matmul32_plain(s, *tab), 4 * N * (k_in + m_out),
+                 k_in * m_out * N * IMAD_PER_WIDE32, headline=k_in == 30)
+    s2 = residues(kst.p_mod.q, 2)
+    tab = (kst.p_hat_mod_q, level.mod.q, level.mod.fold)
+    ck.check("bconv32", "30 -> 59, (2, 30, 2^15)", lambda: bconv.bconv_matmul32(s2, *tab),
+             lambda: bconv.bconv_matmul32_plain(s2, *tab), 4 * N * 2 * (P + L),
+             2 * P * L * N * IMAD_PER_WIDE32)
+    qlp, rows = kst.qlp_q, kst.qlp_key_rows
+    t = residues(qlp, kst.beta)
+    kq = ctx.key_level.mod
+    evk = residues(kq.q, 2, 2)
+    evk_s = mm.shoup32_of(evk, kq.q)
+    ck.check("key_inner_prod_shoup32", "t (2, 89, 2^15), key (2, 2, 90, 2^15)",
+             lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp),
+             lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp),
+             4 * N * (2 * (L + P) + 2 * 2 * 2 * (L + P) + 2 * (L + P)),
+             3 * 2 * 2 * (L + P) * N * IMAD_PER_MUL32, headline=True)
+    # K4 and K5 compute K1's and K2's function: the same 30-bit moduli
+    # through int64 tables, bit for bit
+    wide = ntt.build_device_ntt_tables(
+        [make_ntt_tables(params.log_n, v) for v in level.base.values], ctx.device, q32=False)
+    x64 = x.to(torch.int64)
+    for name, fn in (("forward", ntt.forward_ntt), ("inverse", ntt.inverse_ntt)):
+        if not torch.equal(fn(x, level.ntt).to(torch.int64), fn(x64, wide)):
+            fail(f"q32 {name} NTT (K4/K5) differs from the u64 one (K1/K2) on 30-bit moduli")
+    log("[kernel] ntt_fwd32 == ntt_fwd and ntt_inv32 == ntt_inv on the 59 30-bit moduli "
+        "of (59, 2^15), bit for bit")
+    del x, xp, sub, xs, s, s2, t, evk, evk_s, wide, x64
+
+    # -- 4. the q32 requests ------------------------------------------------
+    launches, products, rlk = run_requests("q32", ctx, ck, SCALE32,
+                                           lambda c: ev.rescale_composite(ctx, c))
+    level1 = ctx.level(1)
+    got = ev.relinearize(ctx, products[0], rlk).data
+    want = plain_relinearize(ctx, level1, products[0].data, rlk)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        fail("q32 relinearize through the kernels differs from the plain versions")
+    log("[q32 slice] relinearize: kernels == plain versions, bit for bit")
+
+    # -- 5. keyswitch timing: the 59-limb level, then bench.py's level(1) ---
+    for ci in (2, 1):
+        lv = ctx.level(ci)
+        ct3 = Ciphertext(torch.stack([residues(lv.mod.q) for _ in range(3)]), chain_index=ci,
+                         scale=SCALE32)
+        keyswitch_timing("q32", f"chain index {ci}, {lv.size} + {P} limbs", ctx, ct3, rlk,
+                         ck, card, profile=ci == 2)
+    return ck.line(launches)
+
+
+# --------------------------------------------------------------------------
+# shared phases
+# --------------------------------------------------------------------------
+
+def run_requests(tag: str, ctx, ck: Checker, scale: float, rescale):
+    """Keys, then REQUESTS requests at chain index 1; returns the launch
+    counts of the requests, the products and the relin key."""
+    import torch
+
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.keys import SecretKey, encrypt_asymmetric
+
     t0 = time.time()
     sk = SecretKey(ctx, seed=5)
     pk = sk.public_key()
     rlk = sk.relin_key()
     torch.cuda.synchronize()
-    log(f"[keygen] secret, public, relin (with Shoup words): {time.time() - t0:.1f} s")
+    log(f"[{tag} keygen] secret, public, relin (with Shoup words), {rlk.data.dtype}: "
+        f"{time.time() - t0:.1f} s")
     enc = CkksEncoder(ctx)
     rng = np.random.default_rng(7)
-    enc_gen = torch.Generator(device=dev).manual_seed(11)
+    enc_gen = torch.Generator(device=ctx.device).manual_seed(11)
 
-    for k in kernels.values():
-        k.launches = 0
+    ck.reset()
     products = []
     for r in range(REQUESTS):
         x_v, y_v = rng.standard_normal(N // 2), rng.standard_normal(N // 2)
         t0 = time.time()
-        ct_x = sk.encrypt_symmetric(enc.encode(x_v, SCALE))
-        ct_y = encrypt_asymmetric(ctx, pk, enc.encode(y_v, SCALE), enc_gen)
+        ct_x = sk.encrypt_symmetric(enc.encode(x_v, scale))
+        ct_y = encrypt_asymmetric(ctx, pk, enc.encode(y_v, scale), enc_gen)
         torch.cuda.synchronize()
         t1 = time.time()
         prod = ev.multiply(ctx, ct_x, ct_y)
-        out = ev.rescale_to_next(ctx, ev.relinearize(ctx, prod, rlk))
+        out = rescale(ev.relinearize(ctx, prod, rlk))
         torch.cuda.synchronize()
         t2 = time.time()
         got = enc.decode(sk.decrypt(out)).real
         t3 = time.time()
         if got.shape != (N // 2,) or not np.all(np.isfinite(got)):
-            fail(f"request {r}: decoded {got.shape} with non-finite values")
+            fail(f"{tag} request {r}: decoded {got.shape} with non-finite values")
         err = float(np.max(np.abs(got - x_v * y_v)))
-        log(f"[request {r}] encode+encrypt {t1 - t0:.3f} s, multiply+relinearize+rescale "
-            f"{(t2 - t1) * 1e3:.2f} ms, decrypt+decode {t3 - t2:.2f} s, max err {err:.3e}, "
-            f"chain index {out.chain_index}")
+        log(f"[{tag} request {r}] encode+encrypt {t1 - t0:.3f} s, "
+            f"multiply+relinearize+rescale {(t2 - t1) * 1e3:.2f} ms, decrypt+decode "
+            f"{t3 - t2:.2f} s, max err {err:.3e}, chain index {out.chain_index}, "
+            f"{out.data.dtype}")
         if not err <= TOL:
-            fail(f"request {r}: max error {err} > {TOL}")
+            fail(f"{tag} request {r}: max error {err} > {TOL}")
         products.append(prod)
-    launches = {name: k.launches for name, k in kernels.items()}
-    log(f"[slice] launches over {REQUESTS} requests: {launches}")
+    launches = ck.launches()
+    log(f"[{tag} slice] launches over {REQUESTS} requests: {launches}")
     for name, count in launches.items():
         if count <= 0:
-            fail(f"kernel {name} was not launched on the slice")
+            fail(f"kernel {name} was not launched on the {tag} slice")
+    return launches, products, rlk
 
-    # one relinearize through the kernels against the plain versions
-    got = ev.relinearize(ctx, products[0], rlk).data
-    want = plain_relinearize(ctx, level, products[0].data, rlk, ntt, bconv, ks, mm)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("relinearize through the kernels differs from the plain versions")
-    log("[slice] relinearize: kernels == plain versions, bit for bit")
 
-    # -- 5. keyswitch timing (bench.py's median-of-pairs marginal) -------
-    ct3 = Ciphertext(torch.stack([residues(level.mod.q) for _ in range(3)]), chain_index=1,
-                     scale=SCALE)
+def keyswitch_timing(tag: str, where: str, ctx, ct3, rlk, ck: Checker, card: str,
+                     profile: bool = True) -> None:
+    """bench.py's median-of-pairs marginal keyswitch time, launches per
+    relinearize and (with `profile`) a device-only profiler window."""
+    import torch
+
+    from tpu_fhe_torch.eval import evaluator as ev
 
     def timed(reps: int) -> float:
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -307,41 +524,20 @@ def main() -> int:
         if long_ > short:
             samples.append((long_ - short) / iters)
     if not samples:
-        fail("keyswitch timing gave no positive marginal")
+        fail(f"{tag} keyswitch timing gave no positive marginal")
     samples.sort()
     ks_ms = samples[len(samples) // 2]
     spread = (samples[-1] - samples[0]) / ks_ms
-    log(f"[keyswitch] {ks_ms:.4f} ms/op, {1e3 / ks_ms:.2f} keyswitch/s (median of "
-        f"{len(samples)} marginal pairs, spread {spread * 100:.0f}%) on {card}")
-    for k in kernels.values():
-        k.launches = 0
+    log(f"[{tag} keyswitch] {where}: {ks_ms:.4f} ms/op, {1e3 / ks_ms:.2f} keyswitch/s "
+        f"(median of {len(samples)} marginal pairs, spread {spread * 100:.0f}%) on {card}")
+    ck.reset()
     ev.relinearize(ctx, ct3, rlk)
-    log(f"[keyswitch] launches per relinearize: "
-        f"{ {name: k.launches for name, k in kernels.items()} }")
-    profile_relinearize(lambda: ev.relinearize(ctx, ct3, rlk))
-
-    # -- 6. the kernels line and the last line ---------------------------
-    sources = {"ntt_fwd": "ntt.cu", "ntt_fwd_landing": "ntt.cu", "ntt_inv": "ntt.cu",
-               "bconv": "bconv.cu", "key_inner_prod_shoup": "ks.cu"}
-    line = []
-    for name, k in kernels.items():
-        e = report[name]
-        file_line, _, _ = k.replaces.partition(" ")
-        line.append({
-            "name": name, "route": "cuda", "source": f"tpu_fhe_torch/csrc/{sources[name]}",
-            "replaces": file_line, "launches": launches[name], "max_abs_err": 0,
-            "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-            "bound_by": e["bound_by"], "library_ms": None, "shapes": e["checks"],
-        })
-        if name == "bconv":
-            line[-1]["also_replaces"] = "tpu_fhe/ops/bconv_mxu_pallas.py:82"
-    print(json.dumps({"kernels": line}), flush=True)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
-                                             "count": torch.cuda.device_count()}}), flush=True)
-    return 0
+    log(f"[{tag} keyswitch] launches per relinearize: {ck.launches()}")
+    if profile:
+        profile_relinearize(tag, lambda: ev.relinearize(ctx, ct3, rlk))
 
 
-def profile_relinearize(fn, reps: int = 10) -> None:
+def profile_relinearize(tag: str, fn, reps: int = 10) -> None:
     """Device time by kernel over `reps` relinearizes (torch.profiler,
     device activity only, so that host tracing does not stretch the
     window), and the device's busy share of the window timed with CUDA
@@ -363,36 +559,41 @@ def profile_relinearize(fn, reps: int = 10) -> None:
     device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in device) / 1e3
     if busy_ms <= 0:
-        log("[profile] the profiler saw no device time: busy share not measured")
+        log(f"[{tag} profile] the profiler saw no device time: busy share not measured")
         return
-    log(f"[profile] {reps} relinearizes: window {window_ms:.3f} ms, device busy "
+    log(f"[{tag} profile] {reps} relinearizes: window {window_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), idle "
         f"{100 * (1 - busy_ms / window_ms):.1f}%")
     for e in sorted(device, key=lambda e: -e.self_device_time_total):
-        log(f"[profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/relinearize  "
+        log(f"[{tag} profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/relinearize  "
             f"{e.count / reps:g} calls  {e.key[:90]}")
 
 
-def plain_relinearize(ctx, level, data, rlk, ntt, bconv, ks, mm):
+def plain_relinearize(ctx, level, data, rlk):
     """evaluator.relinearize composed from the plain versions only."""
     import torch
+
+    from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+
+    def conv(x, table, out):
+        if out.fold is not None:
+            return bconv.bconv_matmul32_plain(x, table, out.q)
+        return bconv.bconv_matmul_plain(x, table, out.q, out.ratio_lo, out.ratio_hi)
 
     kst = level.ks
     c2 = data[2].contiguous()
     scaled = ntt.inverse_ntt_plain(c2, level.ntt, kst.part_qhatinv, kst.part_qhatinv_shoup)
     digits = []
     for dt in kst.digits:
-        conv = bconv.bconv_matmul_plain(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.comp_mod.q,
-                                        dt.comp_mod.ratio_lo, dt.comp_mod.ratio_hi)
-        conv = ntt.forward_ntt_plain(conv, dt.comp_ntt)
-        digits.append(torch.cat([conv[: dt.start], c2[dt.start:dt.end], conv[dt.start:]]))
+        up = ntt.forward_ntt_plain(conv(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.comp_mod),
+                                   dt.comp_ntt)
+        digits.append(torch.cat([up[: dt.start], c2[dt.start:dt.end], up[dt.start:]]))
     cx = ks.key_inner_prod_shoup_plain(torch.stack(digits), rlk.data, rlk.shoup,
                                        kst.qlp_key_rows, kst.qlp_q)
     size_ql = level.size
     p_scaled = ntt.inverse_ntt_plain(cx[:, size_ql:].contiguous(), kst.p_ntt, kst.p_hatinv,
                                      kst.p_hatinv_shoup)
-    delta = bconv.bconv_matmul_plain(p_scaled, kst.p_hat_mod_q, level.mod.q,
-                                     level.mod.ratio_lo, level.mod.ratio_hi)
+    delta = conv(p_scaled, kst.p_hat_mod_q, level.mod)
     down = ntt.forward_ntt_sub_scale_plain(delta, cx[:, :size_ql], level.ntt,
                                            kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
     return mm.add_mod(data[:2], down, level.mod.q)

@@ -1,4 +1,7 @@
-"""The port's CUDA kernels against their plain torch versions, on the card.
+"""The port's CUDA kernels against their plain torch versions, on the card:
+the u64 plan's (K1-K3, K8, K11) on a 50/60-bit chain, the q32 plan's (K4-K6,
+K10, K13) on a composite chain of 30-bit primes, and each slice on the card
+against the same slice on the CPU.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
 nvcc; without a card they skip.  They import neither jax nor tpu_fhe, so
@@ -12,9 +15,11 @@ import pytest
 import torch
 
 from tpu_fhe_torch.core.modulus import CoeffModulus
+from tpu_fhe_torch.core.ntt_tables import make_ntt_tables
 from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
 from tpu_fhe_torch.eval import evaluator as ev
 from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+from tpu_fhe_torch.ops.ntt import build_device_ntt_tables
 from tpu_fhe_torch.scheme.context import FheContext
 from tpu_fhe_torch.scheme.keys import SecretKey
 from tpu_fhe_torch.utils.convert import (
@@ -24,6 +29,10 @@ from tpu_fhe_torch.utils.convert import (
 pytestmark = pytest.mark.cuda
 
 BITS = [60, 50, 50, 50, 50, 60, 60]
+# an anchor pair, two data pairs, four special primes: beta = 2 with a
+# ragged last digit at chain index 1
+COMPOSITE = dict(scale_bits=58, levels=2, degree=2, anchor_bits=30, special_bits=30,
+                 special_count=4)
 
 
 @pytest.fixture(scope="module")
@@ -105,3 +114,101 @@ def test_wrappers_refuse_bad_input(ctx):
         ntt.forward_ntt(x.transpose(0, 1).contiguous().transpose(0, 1), level.ntt)
     with pytest.raises(ValueError):
         ntt.forward_ntt(x[:, :3], level.ntt)
+
+
+# -- the q32 plan ------------------------------------------------------------
+
+@pytest.fixture(scope="module", params=[1024, 4096])
+def ctx32(gpu, request):
+    n = request.param
+    return FheContext(EncryptionParameters(
+        SchemeType.ckks, n, tuple(CoeffModulus.create_composite(n, **COMPOSITE)),
+        special_modulus_size=COMPOSITE["special_count"], composite_degree=2,
+        allow_insecure=True), device=gpu)
+
+
+def _res32(ctx, q, *lead, seed=0):
+    return _res(ctx, q.to(torch.int64), *lead, seed=seed).to(torch.int32)
+
+
+def test_q32_ntt_kernels_equal_plain(ctx32):
+    """K4, K5 (with and without a scale) and K6 (with and without pre)."""
+    level = ctx32.level(1)
+    assert ctx32.is_q32 and level.ntt.is_q32
+    x = _res32(ctx32, level.mod.q, 2)
+    assert torch.equal(ntt.forward_ntt(x, level.ntt), ntt.forward_ntt_plain(x, level.ntt))
+    assert torch.equal(ntt.inverse_ntt(x, level.ntt), ntt.inverse_ntt_plain(x, level.ntt))
+    kst = level.ks
+    s = (kst.part_qhatinv, kst.part_qhatinv_shoup)
+    assert torch.equal(ntt.inverse_ntt_scaled(x, level.ntt, *s),
+                       ntt.inverse_ntt_plain(x, level.ntt, *s))
+    sub = _res32(ctx32, level.mod.q, 2, seed=1)
+    post = (kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
+    for pre in ((None, None), post):
+        assert torch.equal(ntt.forward_ntt_sub_scale(x, sub, level.ntt, *post, *pre),
+                           ntt.forward_ntt_sub_scale_plain(x, sub, level.ntt, *post, *pre))
+    view = kst.digits[1].comp_ntt                # a limb-mapped view
+    y = _res32(ctx32, view.q, seed=2)
+    assert torch.equal(ntt.forward_ntt(y, view), ntt.forward_ntt_plain(y, view))
+
+
+def test_q32_ntt_equals_u64_ntt(ctx32):
+    """K4 and K5 compute K1's and K2's function: the same 30-bit moduli
+    through int64 tables give the same residues."""
+    level = ctx32.level(1)
+    wide = build_device_ntt_tables(
+        [make_ntt_tables(ctx32.params.log_n, v) for v in level.base.values], ctx32.device,
+        q32=False)
+    x = _res32(ctx32, level.mod.q, 2)
+    x64 = x.to(torch.int64)
+    assert torch.equal(ntt.forward_ntt(x, level.ntt).to(torch.int64),
+                       ntt.forward_ntt(x64, wide))
+    assert torch.equal(ntt.inverse_ntt(x, level.ntt).to(torch.int64),
+                       ntt.inverse_ntt(x64, wide))
+
+
+def test_q32_bconv_and_inner_product_equal_plain(ctx32):
+    """K13 on every modup digit and on moddown's conversion, then K10."""
+    level = ctx32.level(1)
+    kst = level.ks
+    for dt in kst.digits:
+        s = _res32(ctx32, level.mod.q[dt.start:dt.end], 2)
+        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.fold)
+        assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
+    s = _res32(ctx32, kst.p_mod.q, 2, seed=3)
+    tab = (kst.p_hat_mod_q, level.mod.q, level.mod.fold)
+    assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
+    # 40 inputs: more than the 32 the kernel keeps in registers
+    primes = [m.value for m in CoeffModulus.create(ctx32.n, [30] * 48)]
+    q_in, q_out = (torch.tensor(v, dtype=torch.int32, device=ctx32.device).reshape(-1, 1)
+                   for v in (primes[:40], primes[40:]))
+    s = _res32(ctx32, q_in, 2, seed=4)
+    g = torch.Generator(device=ctx32.device).manual_seed(5)
+    table = (torch.randint(0, 1 << 30, (8, 40), generator=g, dtype=torch.int64,
+                           device=ctx32.device) % q_out.to(torch.int64)).to(torch.int32)
+    fold = torch.from_numpy(mm.q32_mul_consts(primes[40:]).astype(np.int64).reshape(5, 8, 1))
+    tab = (table, q_out, fold.to(ctx32.device))
+    assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
+    kq = ctx32.key_level.mod
+    evk = _res32(ctx32, kq.q, 2, 2)
+    evk_s = mm.shoup32_of(evk, kq.q)
+    t = _res32(ctx32, kst.qlp_q, kst.beta)
+    args = (t, evk, evk_s, kst.qlp_key_rows, kst.qlp_q)
+    assert torch.equal(ks.key_inner_prod_shoup(*args), ks.key_inner_prod_shoup_plain(*args))
+
+
+def test_q32_relinearize_rescale_composite_equal_cpu(ctx32):
+    """The q32 slice on the card equals the q32 slice on the CPU."""
+    cpu = FheContext(ctx32.params, device="cpu")
+    sk = SecretKey(cpu, seed=3)
+    data, shoup = relin_key_to_np(sk.relin_key())
+    assert data.dtype == shoup.dtype == np.uint32
+    rng = np.random.default_rng(4)
+    qs = np.array(cpu.level(1).base.values, dtype=np.uint64)[:, None]
+    c3 = (rng.integers(0, 2**62, size=(3, len(qs), ctx32.n), dtype=np.uint64) % qs)
+    outs = []
+    for c in (cpu, ctx32):
+        ct = ciphertext_from_np(c, c3.astype(np.uint32), 1, 2.0 ** 116)
+        relin = ev.relinearize(c, ct, relin_key_from_np(c, data, shoup))
+        outs.append(to_numpy(ev.rescale_composite(c, relin).data))
+    np.testing.assert_array_equal(outs[0], outs[1])

@@ -1,4 +1,6 @@
-"""tpu_fhe_torch and chip_smoke.py import neither jax nor tpu_fhe."""
+"""tpu_fhe_torch and chip_smoke.py import neither jax nor tpu_fhe, and the
+port's slices (the u64 plan's and the q32 plan's modules alike) run with
+both blocked."""
 
 import re
 import subprocess
@@ -32,6 +34,38 @@ def test_every_module_imports_with_jax_blocked():
         "    importlib.import_module(name)\n"
         "assert not any(m == 'jax' or m.startswith(('jax.', 'tpu_fhe.'))\n"
         "               for m in sys.modules if sys.modules[m] is not None)\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_q32_slice_runs_with_jax_blocked():
+    """The q32 composite-scaling path (create_composite, int32 keys and
+    ciphertexts, relinearize, rescale_composite) on the CPU, in a process
+    where importing jax or tpu_fhe fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "import numpy as np, torch\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.eval import evaluator as ev\n"
+        "from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "n = 1024\n"
+        "mods = CoeffModulus.create_composite(n, 58, 2, special_count=3)\n"
+        "ctx = FheContext(EncryptionParameters(SchemeType.ckks, n, tuple(mods),\n"
+        "    special_modulus_size=3, composite_degree=2, allow_insecure=True), device='cpu')\n"
+        "sk, enc = SecretKey(ctx, seed=1), CkksEncoder(ctx)\n"
+        "x = np.random.default_rng(0).standard_normal(n // 2)\n"
+        "ct = sk.encrypt_symmetric(enc.encode(x, 2.0 ** 58))\n"
+        "out = ev.rescale_composite(ctx, ev.relinearize(ctx, ev.square(ctx, ct),\n"
+        "                                               sk.relin_key()))\n"
+        "assert out.data.dtype == torch.int32 and out.chain_index == 3\n"
+        "assert np.max(np.abs(enc.decode(sk.decrypt(out)).real - x * x)) < 1e-9\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

@@ -1,9 +1,9 @@
 """Modulus and coefficient-modulus creation (host side, exact arithmetic).
 
-The port's own copy of ``tpu_fhe/core/modulus.py`` for the u64 plan:
-61-bit max NTT-friendly primes, Barrett const ratios (floor(2^128/q) as two
-64-bit words + remainder), HomomorphicEncryption.org security tables.  The
-composite-scaling chain builder belongs to the q32 slice and is not here.
+The port's own copy of ``tpu_fhe/core/modulus.py``: 61-bit max
+NTT-friendly primes, Barrett const ratios (floor(2^128/q) as two 64-bit
+words + remainder), HomomorphicEncryption.org security tables, and the
+composite-scaling chain builder of the q32 regime (every prime < 2^30).
 """
 
 from __future__ import annotations
@@ -17,8 +17,20 @@ USER_MOD_BIT_COUNT_MIN = 2
 USER_MOD_BIT_COUNT_MAX = 60
 POLY_MOD_DEGREE_MIN = 2
 POLY_MOD_DEGREE_MAX = 131072
-# 128-bit accumulators in base conversion hold <= 63 terms of < 2^122.
+# 128-bit accumulators in base conversion hold <= 63 terms of < 2^122, so
+# the u64 plan caps a chain at 64 primes.  In the q32 regime (every prime of
+# at most 30 bits) a product term is < 2^60 and the chain may hold 128.
 COEFF_MOD_COUNT_MAX = 64
+COEFF_MOD_COUNT_MAX_Q32 = 128
+Q32_BIT_MAX = 30
+
+
+def count_cap(bit_counts) -> int:
+    """The longest chain allowed for primes of these bit counts."""
+    bit_counts = list(bit_counts)
+    if bit_counts and max(bit_counts) <= Q32_BIT_MAX:
+        return COEFF_MOD_COUNT_MAX_Q32
+    return COEFF_MOD_COUNT_MAX
 
 
 @dataclass(frozen=True)
@@ -75,8 +87,9 @@ class CoeffModulus:
         n = poly_modulus_degree
         if n > POLY_MOD_DEGREE_MAX or n < POLY_MOD_DEGREE_MIN or n & (n - 1):
             raise ValueError("poly_modulus_degree is invalid")
-        if len(bit_sizes) > COEFF_MOD_COUNT_MAX:
-            raise ValueError("bit_sizes is invalid: at most 64 primes")
+        if len(bit_sizes) > count_cap(bit_sizes):
+            raise ValueError("bit_sizes is invalid: > 64 primes is only supported in the "
+                             "q32 regime (every bit size <= 30)")
         if bit_sizes and (
             max(bit_sizes) > USER_MOD_BIT_COUNT_MAX or min(bit_sizes) < USER_MOD_BIT_COUNT_MIN
         ):
@@ -89,3 +102,59 @@ class CoeffModulus:
             size: numth.get_primes(n, size, count) for size, count in count_table.items()
         }
         return [Modulus(prime_table[size].pop()) for size in bit_sizes]
+
+    @staticmethod
+    def create_composite(poly_modulus_degree: int, scale_bits: int, levels: int,
+                         degree: int = 2, anchor_bits: int = 30, special_bits: int = 30,
+                         special_count: int = 2) -> list[Modulus]:
+        """Composite-scaling chain: an anchor group of `degree` primes of
+        `anchor_bits`, `levels` data groups of `degree` primes whose product
+        tracks the ladder target 2^scale_bits, and `special_count`
+        key-switching primes.  Each group's target is sf_prev^2 / 2^scale_bits,
+        so the per-level error never compounds; for pairs, the first prime is
+        searched among the 24 candidates nearest 2^(scale_bits/2) so that the
+        pair product lands close to its target.  Chain order: anchor, data
+        groups (the last generated first), specials."""
+        n = poly_modulus_degree
+        if degree < 1:
+            raise ValueError("degree must be >= 1")
+        b = scale_bits // degree
+        if not USER_MOD_BIT_COUNT_MIN <= b <= USER_MOD_BIT_COUNT_MAX:
+            raise ValueError("scale_bits/degree out of prime-size bounds")
+        used: set[int] = set()
+
+        def take_near(target: float, bits_cap: int | None) -> int:
+            p = numth.nearest_prime(n, target, used, bits_cap)
+            used.add(p)
+            return p
+
+        anchor = [take_near(2.0 ** anchor_bits * (1 - 2e-3), anchor_bits)
+                  for _ in range(degree)]
+        specials = [take_near(2.0 ** special_bits * (1 - 2e-3), special_bits)
+                    for _ in range(special_count)]
+        target_sf = 2.0 ** scale_bits
+        groups: list[list[int]] = []
+        sf = None
+        for _ in range(levels):
+            tgt = target_sf if sf is None else sf * sf / target_sf
+            if degree == 2:
+                best = None
+                for a in numth.nearest_primes(n, 2.0 ** b, used, 24):
+                    partner = numth.nearest_prime(n, tgt / a, used | {a})
+                    err = abs(a * partner - tgt) / tgt
+                    if best is None or err < best[0]:
+                        best = (err, a, partner)
+                _, a, partner = best
+                used.update((a, partner))
+                group = [a, partner]
+                partial = float(a) * float(partner)
+            else:
+                group, partial = [], 1.0
+                for j in range(degree):
+                    p = take_near(2.0 ** b if j < degree - 1 else tgt / partial, None)
+                    group.append(p)
+                    partial *= float(p)
+            groups.append(group)
+            sf = partial if sf is None else sf * sf / partial
+        data = [p for g in reversed(groups) for p in g]
+        return [Modulus(p) for p in anchor + data + specials]

@@ -1,8 +1,8 @@
 """Number-theory helpers (host side, exact Python integers).
 
 The port's own copy of ``tpu_fhe/core/numth.py``, limited to what the CKKS
-slice needs: primality testing, the NTT-friendly prime search and minimal
-primitive 2N-th roots of unity.  The reference's ctypes fast path for the
+slice needs: primality testing, the NTT-friendly prime searches (by bit
+size, and nearest to a target) and minimal primitive 2N-th roots of unity.  The reference's ctypes fast path for the
 prime search is not ported; the pure-Python search below is the same
 deterministic descending walk, so it yields the same primes.
 """
@@ -98,6 +98,35 @@ def get_primes(ntt_size: int, bit_size: int, count: int) -> list[int]:
     if len(out) < count:
         raise RuntimeError("failed to find enough qualifying primes")
     return out
+
+
+def nearest_primes(ntt_size: int, target: float, used=(), count: int = 1,
+                   max_bits: int | None = None) -> list[int]:
+    """The `count` NTT-friendly primes q = 1 (mod 2*ntt_size) nearest to
+    `target`, skipping values in `used` (and values over `max_bits` bits if
+    given), walking outward from the aligned start in both directions.  The
+    composite-scaling chain builder pins each prime group's product with it."""
+    factor = 2 * ntt_size
+    base = (int(round(target)) // factor) * factor + 1
+    used = set(used)
+    out: list[int] = []
+    for step in range(0, 1 << 22):
+        for sign in ((1,) if step == 0 else (1, -1)):
+            cand = base + sign * step * factor
+            if cand <= 2 or cand in used:
+                continue
+            if max_bits is not None and cand.bit_length() > max_bits:
+                continue
+            if is_prime(cand):
+                out.append(cand)
+                if len(out) >= count:
+                    return out
+    raise RuntimeError("failed to find enough qualifying primes near target")
+
+
+def nearest_prime(ntt_size: int, target: float, used=(),
+                  max_bits: int | None = None) -> int:
+    return nearest_primes(ntt_size, target, used, 1, max_bits)[0]
 
 
 def is_primitive_root(root: int, degree: int, modulus: int) -> bool:

@@ -1,6 +1,7 @@
 """Encryption parameters (scheme, ring degree, modulus chain).
 
-The port's own copy of ``tpu_fhe/core/params.py``, for CKKS on the u64 plan.
+The port's own copy of ``tpu_fhe/core/params.py`` for CKKS, with the
+composite-scaling degree of the q32 regime.
 """
 
 from __future__ import annotations
@@ -8,7 +9,7 @@ from __future__ import annotations
 import enum
 from dataclasses import dataclass
 
-from .modulus import COEFF_MOD_COUNT_MAX, Modulus, he_std_parms
+from .modulus import Modulus, count_cap, he_std_parms
 
 
 class SchemeType(enum.Enum):
@@ -25,6 +26,10 @@ class EncryptionParameters:
     coeff_modulus: tuple[Modulus, ...]
     # Number of trailing special (key-switching) primes P; hybrid KS.
     special_modulus_size: int = 1
+    # Composite scaling (CKKS, q32 regime): one logical level spans this
+    # many RNS limbs, so a ~2^56 working scale is built from pairs of
+    # ~28-30-bit primes.  1 = classic single-prime levels.
+    composite_degree: int = 1
     # HomomorphicEncryption.org security level enforced at construction:
     # total logQP must not exceed the table bound for this N.  0 disables
     # the check, as does allow_insecure=True.
@@ -42,8 +47,25 @@ class EncryptionParameters:
         values = [m.value for m in self.coeff_modulus]
         if len(set(values)) != len(values):
             raise ValueError("coeff modulus primes must be distinct")
-        if len(values) > COEFF_MOD_COUNT_MAX:
-            raise ValueError("coeff modulus chain too long: at most 64 primes")
+        if len(values) > count_cap(v.bit_length() for v in values):
+            raise ValueError("coeff modulus chain too long: > 64 primes is only supported "
+                             "in the q32 regime (every prime < 2^30)")
+        d = self.composite_degree
+        if d < 1:
+            raise ValueError("composite_degree must be >= 1")
+        if d > 1:
+            if self.scheme != SchemeType.ckks:
+                raise ValueError("composite scaling is a CKKS regime")
+            if self.size_Q % d:
+                raise ValueError("composite scaling needs size_Q divisible by the degree "
+                                 "(every logical level, including the anchor, is a full "
+                                 "group of primes)")
+            anchor = 1
+            for v in values[:d]:
+                anchor *= v
+            if anchor.bit_length() > 62:
+                raise ValueError("composite anchor product must fit 62 bits (exact u64 "
+                                 "CRT compose during RaiseMod)")
         if self.sec_level and not self.allow_insecure:
             bound = he_std_parms(n, self.sec_level)
             total = sum(v.bit_length() for v in values)

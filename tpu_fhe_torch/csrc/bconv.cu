@@ -21,11 +21,27 @@
 // column (neighbouring threads on neighbouring n, so reads coalesce) and
 // the table row is the same for the whole block (broadcast from cache).
 // The k inputs are re-read once per output limb, from L2.
+//
+// tfhe_bconv32 replaces the q32 plan's base conversion,
+// tpu_fhe/ops/bconv_mxu_pallas.py:179 _kernel32 (K13), for residues and
+// moduli below 2^30 stored as single u32 words.  Each product is below
+// 2^60 and a row sum below k * 2^60 < 2^96 (bconv_mxu_pallas.py:186-188),
+// so the sum runs exactly in a u64 plus a u32 carry word, for any k, and
+// lands once per output limb by the word-fold Barrett of
+// tpu_fhe/ops/u32pair.py barrett_reduce96_32: each 32-bit word is folded
+// with a Shoup32 multiply by 2^(32 i) mod p.  K13 forms the same sum
+// through int8 digit planes on the MXU; this is its SIMT form: one thread
+// per coefficient keeps its first 32 inputs in registers across a tile of
+// 8 output limbs (the tiles of a coefficient re-read its inputs from L2).
+// Whether the int8 tensor-core (wgmma s8) form beats it is a measurement
+// for a later change.  What bounds it: bytes, with the multiply count
+// close behind (k word products per output coefficient).
 
 #include <cstdint>
 #include <cuda_runtime.h>
 
 typedef unsigned long long u64;
+typedef uint32_t u32;
 
 namespace {
 
@@ -75,6 +91,60 @@ __global__ void bconv_kernel(const u64 *__restrict__ s, u64 *__restrict__ out,
   out[((size_t)b * m + j) * n + i] = res;
 }
 
+constexpr int kRegK = 32;      // inputs a thread keeps in registers
+constexpr int kOutTile = 8;    // output limbs per thread
+
+__device__ __forceinline__ u32 csub32(u32 a, u32 q) { return a >= q ? a - q : a; }
+
+__device__ __forceinline__ u32 shoup32_lazy(u32 a, u32 w, u32 ws, u32 q) {
+  return a * w - __umulhi(a, ws) * q;
+}
+
+// (w2 : lo) mod q for q < 2^30; fold rows (5, m): floor(2^32/q),
+// 2^32 mod q and its Shoup32 word, 2^64 mod q and its Shoup32 word.
+__device__ __forceinline__ u32 reduce96(u64 lo, u32 w2, u32 q, const u64 *fold, int j, int m) {
+  const u32 w0 = static_cast<u32>(lo), w1 = static_cast<u32>(lo >> 32);
+  const u32 s0 = csub32(w0 - __umulhi(w0, static_cast<u32>(fold[j])) * q, q);
+  const u32 s1 = csub32(
+      shoup32_lazy(w1, static_cast<u32>(fold[m + j]), static_cast<u32>(fold[2 * m + j]), q), q);
+  const u32 s2 =
+      shoup32_lazy(w2, static_cast<u32>(fold[3 * m + j]), static_cast<u32>(fold[4 * m + j]), q);
+  return csub32(csub32(s0 + s1 + s2, 2 * q), q);   // s0 + s1 + s2 < 4q
+}
+
+__global__ void bconv32_kernel(const u32 *__restrict__ s, u32 *__restrict__ out,
+                               const u32 *__restrict__ table, const u32 *__restrict__ p,
+                               const u64 *__restrict__ fold, int k, int m, int n) {
+  const int b = blockIdx.z;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const int j0 = blockIdx.y * kOutTile;
+  const int j1 = j0 + kOutTile < m ? j0 + kOutTile : m;
+  const u32 *src = s + (size_t)b * k * n + i;
+  u32 x[kRegK];
+#pragma unroll
+  for (int c = 0; c < kRegK; ++c) x[c] = c < k ? src[(size_t)c * n] : 0;
+  for (int j = j0; j < j1; ++j) {
+    const u32 *row = table + (size_t)j * k;
+    u64 lo = 0;
+    u32 hi = 0;
+#pragma unroll
+    for (int c = 0; c < kRegK; ++c) {
+      if (c < k) {
+        const u64 prod = static_cast<u64>(x[c]) * row[c];
+        lo += prod;
+        hi += lo < prod;
+      }
+    }
+    for (int c = kRegK; c < k; ++c) {
+      const u64 prod = static_cast<u64>(src[(size_t)c * n]) * row[c];
+      lo += prod;
+      hi += lo < prod;
+    }
+    out[((size_t)b * m + j) * n + i] = reduce96(lo, hi, p[j], fold, j, m);
+  }
+}
+
 }  // namespace
 
 extern "C" {
@@ -85,6 +155,16 @@ int tfhe_bconv(const u64 *s, u64 *out, const u64 *table, const u64 *p, const u64
   const dim3 grid((n + kThreads - 1) / kThreads, m, batch);
   bconv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       s, out, table, p, ratio_lo, ratio_hi, k, m, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// s: (batch, k, n); out: (batch, m, n); table: (m, k); p: (m,), all u32
+// words below 2^30; fold: (5, m) u64 constants (see reduce96).
+int tfhe_bconv32(const u32 *s, u32 *out, const u32 *table, const u32 *p, const u64 *fold,
+                 int batch, int k, int m, int n, void *stream) {
+  const dim3 grid((n + kThreads - 1) / kThreads, (m + kOutTile - 1) / kOutTile, batch);
+  bconv32_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      s, out, table, p, fold, k, m, n);
   return static_cast<int>(cudaGetLastError());
 }
 

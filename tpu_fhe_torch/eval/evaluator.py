@@ -1,17 +1,21 @@
 """CKKS evaluator core: add/sub/multiply, hybrid key switching, rescale.
 
-Port of the single-device u64 path of ``tpu_fhe/eval/evaluator.py``:
+Port of the single-device path of ``tpu_fhe/eval/evaluator.py``, on the
+u64 plan and on the q32 plan of composite scaling:
 
-  * tensor products are elementwise NTT-domain modmuls over (L, N) planes;
+  * tensor products are elementwise NTT-domain modmuls over (L, N) planes
+    (the single-word ``mul_mod_q32`` on a q32 context);
   * hybrid key switching = modup (iNTT + per-digit fast base conversion to
     the complement of QlP + NTT) -> beta-digit inner product with the
     Shoup-form evk -> moddown (BEHZ P->Ql conversion + P^{-1} scale fused
     into the forward NTT);
-  * rescale divides by q_last with round-half-up via the half-lift trick.
+  * rescale divides by q_last with round-half-up via the half-lift trick;
+    ``rescale_composite`` divides by the product of the last limbs at once.
 
 The NTT, base conversion and inner product run as CUDA kernels on a CUDA
-context and as their plain torch versions on a CPU context; the glue
-between them is plain torch.  Every function returns new tensors.
+context (K1-K3, K8, K11 on the u64 plan; K4-K6, K10, K13 on the q32 plan)
+and as their plain torch versions on a CPU context; the glue between them
+is plain torch.  Every function returns new tensors.
 """
 
 from __future__ import annotations
@@ -20,12 +24,13 @@ from dataclasses import replace
 
 import torch
 
+from ..core.numth import invert_mod
 from ..ops import modarith as mm
-from ..ops.bconv import bconv_matmul
+from ..ops.bconv import bconv_matmul, bconv_matmul32
 from ..ops.ks import key_inner_prod_shoup
 from ..ops.ntt import forward_ntt, forward_ntt_sub_scale, inverse_ntt, inverse_ntt_scaled
 from ..scheme.ciphertext import Ciphertext, Plaintext
-from ..scheme.context import ContextLevel, FheContext
+from ..scheme.context import ContextLevel, FheContext, ModulusVec
 from ..scheme.keys import RelinKey
 
 
@@ -67,7 +72,7 @@ def multiply(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     comps: list = [None] * (a.size + b.size - 1)
     for i in range(a.size):
         for j in range(b.size):
-            t = mm.mul_mod(a.data[i], b.data[j], mod.q, mod.ratio_lo, mod.ratio_hi)
+            t = mod.mul(a.data[i], b.data[j])
             k = i + j
             comps[k] = t if comps[k] is None else mm.add_mod(comps[k], t, mod.q)
     return replace(a, data=torch.stack(comps), scale=a.scale * b.scale,
@@ -77,17 +82,14 @@ def multiply(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
 def square(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     mod = ctx.level(a.chain_index).mod
     a0, a1 = a.data[0], a.data[1]
-    c0 = mm.mul_mod(a0, a0, mod.q, mod.ratio_lo, mod.ratio_hi)
-    c2 = mm.mul_mod(a1, a1, mod.q, mod.ratio_lo, mod.ratio_hi)
-    cross = mm.mul_mod(a0, a1, mod.q, mod.ratio_lo, mod.ratio_hi)
+    c0, c2, cross = mod.mul(a0, a0), mod.mul(a1, a1), mod.mul(a0, a1)
     cross = mm.add_mod(cross, cross, mod.q)
     return replace(a, data=torch.stack([c0, cross, c2]), scale=a.scale * a.scale,
                    noise_scale_deg=a.noise_scale_deg * 2)
 
 
 def multiply_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
-    mod = ctx.level(a.chain_index).mod
-    data = mm.mul_mod(a.data, pt.data[None], mod.q, mod.ratio_lo, mod.ratio_hi)
+    data = ctx.level(a.chain_index).mod.mul(a.data, pt.data[None])
     return replace(a, data=data, scale=a.scale * pt.scale,
                    noise_scale_deg=a.noise_scale_deg + pt.noise_scale_deg)
 
@@ -95,6 +97,21 @@ def multiply_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
 # --------------------------------------------------------------------------
 # hybrid key switching (the hot path)
 # --------------------------------------------------------------------------
+
+def _bconv(scaled: torch.Tensor, table: torch.Tensor, out: ModulusVec) -> torch.Tensor:
+    """Base conversion into the moduli `out`: K13's form on a q32 context,
+    K11's otherwise."""
+    if out.fold is not None:
+        return bconv_matmul32(scaled, table, out.q, out.fold)
+    return bconv_matmul(scaled, table, out.q, out.ratio_lo, out.ratio_hi)
+
+
+def _reduce(x: torch.Tensor, out: ModulusVec) -> torch.Tensor:
+    """x mod q_i, in the word of `out`, for non-negative x below 2^62."""
+    if out.fold is not None:
+        return torch.remainder(x, out.q).to(torch.int32)
+    return mm.barrett_reduce_u64(x, out.q, out.ratio_hi)
+
 
 def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor) -> torch.Tensor:
     """Digit-decompose c2 ((size_Ql, N), NTT form) into (beta, size_QlP, N),
@@ -105,8 +122,7 @@ def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor) -> torch.Tenso
     scaled = inverse_ntt_scaled(c2, level.ntt, ks.part_qhatinv, ks.part_qhatinv_shoup)
     digits = []
     for dt in ks.digits:
-        conv = bconv_matmul(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.comp_mod.q,
-                            dt.comp_mod.ratio_lo, dt.comp_mod.ratio_hi)
+        conv = _bconv(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.comp_mod)
         conv_ntt = forward_ntt(conv, dt.comp_ntt)
         digits.append(torch.cat(
             [conv_ntt[: dt.start], c2[dt.start:dt.end], conv_ntt[dt.start:]]))
@@ -132,8 +148,7 @@ def moddown_from_ntt(ctx: FheContext, level: ContextLevel, cx: torch.Tensor) -> 
     size_Ql = level.size
     scaled = inverse_ntt_scaled(cx[..., size_Ql:, :].contiguous(), ks.p_ntt,
                                 ks.p_hatinv, ks.p_hatinv_shoup)
-    delta = bconv_matmul(scaled, ks.p_hat_mod_q, level.mod.q, level.mod.ratio_lo,
-                         level.mod.ratio_hi)
+    delta = _bconv(scaled, ks.p_hat_mod_q, level.mod)
     # (cx - NTT(delta)) * P^{-1}, fused into the forward transform
     return forward_ntt_sub_scale(delta, cx[..., :size_Ql, :].contiguous(), level.ntt,
                                  ks.big_pinv_mod_q, ks.big_pinv_mod_q_shoup)
@@ -170,11 +185,77 @@ def rescale_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     last_half = mm.add_mod(last_coeff, half, q_last)
     next_level = ctx.level(a.chain_index + 1)
     rest = next_level.mod
-    reduced = mm.barrett_reduce_u64(last_half, rest.q, rest.ratio_hi)   # (size, L-1, N)
-    half_mod = mm.barrett_reduce_u64(half, rest.q, rest.ratio_hi)
-    tmp = mm.sub_mod(reduced, half_mod, rest.q)
+    reduced = _reduce(last_half, rest)           # (size, L-1, N)
+    tmp = mm.sub_mod(reduced, _reduce(half, rest), rest.q)
     # (ct - NTT(tmp)) * q_last^{-1}, fused into the forward transform
     out = forward_ntt_sub_scale(tmp, a.data[:, :-1, :].contiguous(), next_level.ntt,
                                 level.inv_q_last_mod_q, level.inv_q_last_mod_q_shoup)
     return replace(a, data=out, chain_index=a.chain_index + 1,
                    scale=a.scale / ctx.q_values[size_Ql - 1])
+
+
+def _garner_compose_u64(level: ContextLevel, coeff: torch.Tensor, start: int, count: int,
+                        qs: list[int]) -> torch.Tensor:
+    """CRT-compose `count` consecutive limb residues (chain positions
+    start .. start+count-1 of `level`) into the exact value mod their
+    product, which the caller guarantees is below 2^62, as int64.  Garner:
+    extend one prime at a time with v_i = (x_i - cur) * inv(prod_prev) mod q_i."""
+    cur = coeff[..., 0:1, :].to(torch.int64)
+    prod_prev = qs[0]
+    for i in range(1, count):
+        mod = level.mod.rows(slice(start + i, start + i + 1))
+        diff = mm.sub_mod(coeff[..., i:i + 1, :], _reduce(cur, mod), mod.q)
+        v = mod.mul(diff, torch.full_like(mod.q, invert_mod(prod_prev % qs[i], qs[i])))
+        cur = v.to(torch.int64) * prod_prev + cur
+        prod_prev *= qs[i]
+    return cur
+
+
+def rescale_composite(ctx: FheContext, a: Ciphertext, limbs: int = 2) -> Ciphertext:
+    """Composite-scaling rescale: one divide-and-round by the product Q2 of
+    the last `limbs` primes, dropping `limbs` chain levels.  One logical
+    CKKS level of the q32 regime spans a pair of ~30-bit primes, so a
+    multiplication rescales by both.  When Q2 fits 62 bits: iNTT only the
+    dropped limbs, Garner-compose them to the exact value mod Q2, apply the
+    rounding shift, and land the subtraction and the Q2^{-1} scale in one
+    fused forward pass; otherwise `limbs` sequential rescales."""
+    if limbs == 1:
+        return rescale_to_next(ctx, a)
+    if a.chain_index + limbs >= len(ctx.chain):
+        raise ValueError("not enough levels left to rescale")
+    level = ctx.level(a.chain_index)
+    size_Ql = level.size
+    if size_Ql - limbs < 1:
+        raise ValueError("no modulus left to rescale")
+    keep = size_Ql - limbs
+    qd = ctx.q_values[keep:size_Ql]
+    q2 = 1
+    for v in qd:
+        q2 *= v
+    if q2.bit_length() > 62:
+        for _ in range(limbs):
+            a = rescale_to_next(ctx, a)
+        return a
+
+    drop_ntt, inv_q2, inv_q2_shoup, half_mod = ctx.composite_rescale_tables(a.chain_index,
+                                                                            limbs)
+    coeff = inverse_ntt(a.data[:, keep:, :].contiguous(), drop_ntt)
+    v = _garner_compose_u64(level, coeff, keep, limbs, qd)            # [0, Q2)
+    # w = (v + Q2/2) mod Q2, then per remaining limb tmp_i = (w - Q2/2) mod
+    # q_i, so that x - tmp == round(x / Q2) * Q2 (mod q_i)
+    w = mm.csub(v + (q2 >> 1), q2)
+    next_level = ctx.level(a.chain_index + limbs)
+    tmp = mm.sub_mod(_reduce(w, next_level.mod), half_mod, next_level.mod.q)
+    out = forward_ntt_sub_scale(tmp, a.data[:, :keep, :].contiguous(), next_level.ntt,
+                                inv_q2, inv_q2_shoup)
+    scale = a.scale
+    for v_ in qd:
+        scale /= float(v_)
+    return replace(a, data=out, chain_index=a.chain_index + limbs, scale=scale)
+
+
+def mod_drop_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
+    """Drop the last limb without scaling (mod switch)."""
+    if a.chain_index + 1 >= len(ctx.chain):
+        raise ValueError("already at the last level; cannot drop further")
+    return replace(a, data=a.data[:, :-1, :].contiguous(), chain_index=a.chain_index + 1)

@@ -18,6 +18,14 @@ the kernels use native ``uint64_t`` and ``__umul64hi`` on the same memory.
 Moduli and constants broadcast against the data (typically (L, 1) against
 (..., L, N)).  Functions ending in ``_lazy`` return values in [0, 2q);
 the others return canonical values in [0, q).
+
+The q32 regime (every modulus < 2^30, ``tpu_fhe/ops/u32pair.py`` and
+``w64.py:383-454``) keeps residues in ``torch.int32`` tensors: residues are
+non-negative there, while Shoup32 words floor(w * 2^32 / q) use all 32 bits
+and read as negative int32.  Its helpers compute in int64, where a product
+of a residue and a 32-bit word fits: ``mul_mod_q32`` is the reference's
+single-word formula, ``mul_mod_shoup32`` and ``shoup32_of`` exact.
+``csub``, ``add_mod``, ``sub_mod`` and ``neg_mod`` serve both word sizes.
 """
 
 from __future__ import annotations
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 M31 = (1 << 31) - 1
+M32 = (1 << 32) - 1
 M62 = (1 << 62) - 1
 SIGN = -(1 << 63)  # int64 pattern of 2^63
 
@@ -161,3 +170,68 @@ def shoup_of(w, q, ratio_lo, ratio_hi):
     e = _extract(_dmul(_digits(w, 2), _digits128(ratio_hi, ratio_lo)), 64)
     rem = (-_mullo62(e & M62, q)) & M62
     return torch.where(rem >= q, _inc(e), e)
+
+
+# --------------------------------------------------------------------------
+# q32 regime: single-word residues in int32 tensors
+# --------------------------------------------------------------------------
+
+def u32_tensor(vals, device) -> torch.Tensor:
+    """uint32 values (array or list of ints < 2^32) -> int32 tensor of the
+    same bits."""
+    arr = np.ascontiguousarray(np.asarray(vals, dtype=np.uint64).astype(np.uint32))
+    return torch.from_numpy(arr.view(np.int32).copy()).to(device)
+
+
+def i32_of_u32(v: torch.Tensor) -> torch.Tensor:
+    """int64 values in [0, 2^32) -> the int32 tensor of the same 32 bits."""
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
+
+
+def u32_of_i32(x: torch.Tensor) -> torch.Tensor:
+    """int32 bit patterns -> their unsigned values as int64."""
+    return x.to(torch.int64) & M32
+
+
+def q32_mul_consts(q_vals) -> np.ndarray:
+    """Single-word reduction constants per modulus q < 2^30, a (5, k)
+    uint64 array: floor(2^32/q), 2^32 mod q and its Shoup32 word, 2^64 mod q
+    and its Shoup32 word.  The first three are ``w64.q32_mul_consts``'s (the
+    multiply's fold of a 64-bit product); the 2^64 pair folds the third
+    word of base conversion's 96-bit sums (bconv_mxu_pallas.py:235-240)."""
+    q = [int(v) for v in np.asarray(q_vals, dtype=np.uint64).reshape(-1)]
+    c32 = [(1 << 32) % v for v in q]
+    c64 = [(1 << 64) % v for v in q]
+    return np.array([[(1 << 32) // v for v in q],
+                     c32, [(c << 32) // v for c, v in zip(c32, q)],
+                     c64, [(c << 32) // v for c, v in zip(c64, q)]], dtype=np.uint64)
+
+
+def mul_mod_q32(a, b, q, consts):
+    """a*b mod q for canonical int32 residues, q < 2^30 (int32, broadcast
+    like the data) and consts = q32_mul_consts as int64 (5, ..., 1): the
+    product's low word folds by plain Barrett, its high word by a Shoup32
+    multiply with 2^32 mod q (w64.py:399-414).  Returns canonical int32."""
+    p = a.to(torch.int64) * b.to(torch.int64)              # < 2^60
+    lo, hi = p & M32, p >> 32
+    s0 = lo - ((lo * consts[0]) >> 32) * q                 # [0, 2q)
+    s1 = hi * consts[1] - ((hi * consts[2]) >> 32) * q     # [0, 2q)
+    return csub(csub(s0 + s1, 2 * q), q).to(torch.int32)
+
+
+def mul_mod_shoup32(a, w, ws, q):
+    """a*w mod q in [0, q) (int32) for int32 0 <= a < 2^31, w < q < 2^30
+    and ws = floor(w * 2^32 / q) as an int32 bit pattern: the Shoup
+    remainder a*w - floor(a*ws / 2^32)*q lies in [0, 2q)
+    (u32pair.py:143-152); a*ws < 2^63 keeps it exact in int64."""
+    a = a.to(torch.int64)
+    r = a * w - ((a * u32_of_i32(ws)) >> 32) * q
+    return csub(r, q).to(torch.int32)
+
+
+def shoup32_of(w, q):
+    """Exact floor(w * 2^32 / q) as int32 bit patterns, for int32 residues
+    w < q < 2^30 (q int32, broadcast like w).  The reference estimates it
+    from the 96-bit ratio floor(2^96/q) and corrects (w64.py:435-454); here
+    w * 2^32 < 2^62 and int64 floor division is exact."""
+    return i32_of_u32(torch.div(w.to(torch.int64) << 32, q, rounding_mode="floor"))

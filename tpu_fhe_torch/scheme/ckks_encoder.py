@@ -3,7 +3,9 @@
 Port of the default host path of ``tpu_fhe/scheme/ckks_encoder.py``: the
 complex transform runs on the host in float64 through an FFT of size 2N;
 the rounded coefficients are RNS-decomposed on the host and the forward
-NTT runs on the context's device.  Decode is the inverse chain, with the
+NTT runs on the context's device.  Plaintexts are in the context's word:
+int32 on a q32 context (the reference's compact plaintexts,
+``tpu_fhe/scheme/ckks_encoder.py:198-203``), int64 otherwise.  Decode is the inverse chain, with the
 CRT composition in exact Python integers (seconds at N = 2^15 and 30 limbs).
 Sparse packing (slots < N/2) replicates the slot vector across the full
 slot set.
@@ -14,7 +16,7 @@ from __future__ import annotations
 import numpy as np
 
 from ..core.rns import RNSBase
-from ..ops.modarith import u64_tensor
+from ..ops.modarith import u32_tensor, u64_tensor
 from ..ops.ntt import forward_ntt, inverse_ntt
 from .ciphertext import Plaintext
 from .context import FheContext
@@ -67,7 +69,8 @@ class CkksEncoder:
         amax = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
         if int(amax).bit_length() + 2 >= level.base.big_modulus.bit_length():
             raise ValueError("encoded values are too large for the modulus")
-        data = u64_tensor(_round_decompose(coeffs, level.base), self.context.device)
+        word = u32_tensor if self.context.is_q32 else u64_tensor
+        data = word(_round_decompose(coeffs, level.base), self.context.device)
         return Plaintext(data=forward_ntt(data, level.ntt), chain_index=chain_index,
                          scale=scale)
 
@@ -76,7 +79,7 @@ class CkksEncoder:
         data = pt.data.contiguous()
         if pt.is_ntt_form:
             data = inverse_ntt(data, level.ntt)
-        residues = data.cpu().numpy().view(np.uint64)
+        residues = data.cpu().numpy().astype(np.int64).view(np.uint64)
         coeffs = _compose_signed(residues, level.base)
         vals = self._embed_forward(np.asarray(coeffs, dtype=np.float64) / pt.scale)
         return vals if slots is None else vals[:slots]

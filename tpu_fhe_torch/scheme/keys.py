@@ -6,7 +6,10 @@ pk = (-(a s + e), a); hybrid key-switching keys with dnum digits where
 digit d's first component carries + P * s^2 on the digit's limbs.  The
 relin key carries Shoup companion words of every limb by default, so the
 keyswitch inner product takes the Shoup kernel (ops/ks.py); they are
-computed once here, with the plain torch ``shoup_of`` on the key's device.
+computed once here, with the plain torch ``shoup_of`` (or ``shoup32_of``
+on a q32 context) on the key's device.  On a q32 context every key,
+ciphertext and plaintext is int32, the counterpart of the reference's
+compact u32 storage (tpu_fhe/scheme/keys.py:165-170, :306, :392).
 Galois keys belong to a later slice.
 
 All sampling draws from the secret key's ``torch.Generator``.
@@ -33,7 +36,8 @@ class PublicKey:
 @dataclass(frozen=True)
 class RelinKey:
     """Hybrid KS key: data[d] = (b_d, a_d) at the key level, d < dnum.
-    shoup: floor(data * 2^64 / q) per limb (same shape), or None."""
+    shoup: floor(data * 2^64 / q) per limb (same shape), or None; on a q32
+    context both are int32 and the words are floor(data * 2^32 / q)."""
 
     data: torch.Tensor  # (dnum, 2, size_QP, N)
     shoup: torch.Tensor | None = None
@@ -60,8 +64,9 @@ class SecretKey:
             s_ntt = forward_ntt(
                 prng.sample_ternary(self.generator, kl.mod.q, context.n), kl.ntt)
         expected = (kl.size, context.n)
-        if tuple(s_ntt.shape) != expected or s_ntt.device != context.device:
-            raise ValueError(f"secret must be {expected} on {context.device}")
+        if tuple(s_ntt.shape) != expected or s_ntt.device != context.device \
+                or s_ntt.dtype != context.dtype:
+            raise ValueError(f"secret must be {expected} {context.dtype} on {context.device}")
         self.s_ntt = s_ntt
 
     # -- switching keys ---------------------------------------------------
@@ -69,10 +74,10 @@ class SecretKey:
         """(b, a) with b = -(a * secret + e) at the key level (NTT form)."""
         ctx = self.context
         kl = ctx.key_level
-        q, rlo, rhi = kl.mod.q, kl.mod.ratio_lo, kl.mod.ratio_hi
+        q = kl.mod.q
         a = prng.sample_uniform(self.generator, q, ctx.n)
         e = forward_ntt(prng.sample_cbd_error(self.generator, q, ctx.n), kl.ntt)
-        b = mm.neg_mod(mm.add_mod(mm.mul_mod(a, secret_ntt, q, rlo, rhi), e, q), q)
+        b = mm.neg_mod(mm.add_mod(kl.mod.mul(a, secret_ntt), e, q), q)
         return torch.stack([b, a])
 
     def public_key(self) -> PublicKey:
@@ -86,14 +91,14 @@ class SecretKey:
         dnum = (size_Q + size_P - 1) // size_P
         big_p = ctx.base_P.big_modulus
         p_mod_q = torch.tensor([[big_p % m.value] for m in ctx.key_modulus],
-                               dtype=torch.int64, device=ctx.device)
-        q, rlo, rhi = kl.mod.q, kl.mod.ratio_lo, kl.mod.ratio_hi
+                               dtype=ctx.dtype, device=ctx.device)
         keys = []
         for d in range(dnum):
             pk = self._enc_zero_under(self.s_ntt)
             sl = slice(d * size_P, min((d + 1) * size_P, size_Q))
-            chunk = mm.mul_mod(target_ntt[sl], p_mod_q[sl], q[sl], rlo[sl], rhi[sl])
-            pk[0, sl] = mm.add_mod(pk[0, sl], chunk, q[sl])
+            mod = kl.mod.rows(sl)
+            chunk = mod.mul(target_ntt[sl], p_mod_q[sl])
+            pk[0, sl] = mm.add_mod(pk[0, sl], chunk, mod.q)
             keys.append(pk)
         data = torch.stack(keys)
         return RelinKey(data, self.evk_shoup(data) if shoup else None)
@@ -101,13 +106,14 @@ class SecretKey:
     def evk_shoup(self, data: torch.Tensor) -> torch.Tensor:
         """Shoup companion words of a switching key's limbs."""
         kl = self.context.key_level
+        if self.context.is_q32:
+            return mm.shoup32_of(data, kl.mod.q)
         return mm.shoup_of(data, kl.mod.q, kl.mod.ratio_lo, kl.mod.ratio_hi)
 
     def relin_key(self, shoup: bool = True) -> RelinKey:
         """The relinearization key; `shoup` (default on) attaches the Shoup
         companion words the inner-product kernel reads."""
-        kl = self.context.key_level
-        s2 = mm.mul_mod(self.s_ntt, self.s_ntt, kl.mod.q, kl.mod.ratio_lo, kl.mod.ratio_hi)
+        s2 = self.context.key_level.mod.mul(self.s_ntt, self.s_ntt)
         return self._kswitch_key(s2, shoup)
 
     # -- encryption / decryption ------------------------------------------
@@ -115,11 +121,10 @@ class SecretKey:
         """c = (b + m, a) with fresh (b, a) at the plaintext's level."""
         ctx = self.context
         level = ctx.level(pt.chain_index)
-        q, rlo, rhi = level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi
+        q = level.mod.q
         a = prng.sample_uniform(self.generator, q, ctx.n)
         e = forward_ntt(prng.sample_cbd_error(self.generator, q, ctx.n), level.ntt)
-        s = self.s_ntt[: level.size]
-        b = mm.neg_mod(mm.add_mod(mm.mul_mod(a, s, q, rlo, rhi), e, q), q)
+        b = mm.neg_mod(mm.add_mod(level.mod.mul(a, self.s_ntt[: level.size]), e, q), q)
         return Ciphertext(
             data=torch.stack([mm.add_mod(b, pt.data, q), a]),
             chain_index=pt.chain_index,
@@ -131,10 +136,9 @@ class SecretKey:
         """NTT-form decrypt: m = sum_i c_i s^i."""
         level = self.context.level(ct.chain_index)
         s = self.s_ntt[: level.size]
-        q, rlo, rhi = level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi
         acc = ct.data[ct.size - 1]
         for i in range(ct.size - 2, -1, -1):
-            acc = mm.add_mod(mm.mul_mod(acc, s, q, rlo, rhi), ct.data[i], q)
+            acc = mm.add_mod(level.mod.mul(acc, s), ct.data[i], level.mod.q)
         return Plaintext(data=acc, chain_index=ct.chain_index, scale=ct.scale,
                          noise_scale_deg=ct.noise_scale_deg)
 
@@ -143,14 +147,14 @@ def encrypt_asymmetric(context: FheContext, pk: PublicKey, pt: Plaintext,
                        gen: torch.Generator) -> Ciphertext:
     """c = (u*pk0 + e0 + m, u*pk1 + e1) at the plaintext's level."""
     level = context.level(pt.chain_index)
-    q, rlo, rhi = level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi
+    q, mul = level.mod.q, level.mod.mul
     n = context.n
     u = forward_ntt(prng.sample_ternary(gen, q, n), level.ntt)
     e0 = forward_ntt(prng.sample_cbd_error(gen, q, n), level.ntt)
     e1 = forward_ntt(prng.sample_cbd_error(gen, q, n), level.ntt)
     pk0, pk1 = pk.data[0, : level.size], pk.data[1, : level.size]
-    c0 = mm.add_mod(mm.add_mod(mm.mul_mod(u, pk0, q, rlo, rhi), e0, q), pt.data, q)
-    c1 = mm.add_mod(mm.mul_mod(u, pk1, q, rlo, rhi), e1, q)
+    c0 = mm.add_mod(mm.add_mod(mul(u, pk0), e0, q), pt.data, q)
+    c1 = mm.add_mod(mul(u, pk1), e1, q)
     return Ciphertext(
         data=torch.stack([c0, c1]),
         chain_index=pt.chain_index,

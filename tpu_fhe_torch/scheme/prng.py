@@ -7,7 +7,8 @@ Port of ``tpu_fhe/scheme/prng.py`` with the same distributions:
     (sigma ~= 3.24).
 The generator is torch's, not JAX's threefry, so the bits differ from the
 reference's for the same seed; tests hand both packages the same samples.
-Every output is (L, n) int64 with -x represented as q_i - x.
+Every output is (L, n) in the word of q (int64, or int32 on a q32
+context) with -x represented as q_i - x.
 """
 
 from __future__ import annotations
@@ -21,12 +22,12 @@ def sample_uniform(gen: torch.Generator, q: torch.Tensor, n: int) -> torch.Tenso
         torch.randint(0, int(qi), (n,), generator=gen, dtype=torch.int64, device=q.device)
         for qi in q.reshape(-1).tolist()
     ]
-    return torch.stack(rows)
+    return torch.stack(rows).to(q.dtype)
 
 
 def _lift_signed(v: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     """Small signed (1, n) values -> (L, n) residues mod every q_i."""
-    return torch.where(v < 0, q + v, v.expand(q.shape[0], -1))
+    return torch.where(v < 0, q + v, v.expand(q.shape[0], -1)).to(q.dtype)
 
 
 def sample_ternary(gen: torch.Generator, q: torch.Tensor, n: int) -> torch.Tensor:
