@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's two CKKS slices on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's CKKS slices on one NVIDIA GPU.
 
 Run from the root of the repository, with no arguments:
 
@@ -11,13 +11,13 @@ turned into a pass, and nothing runs on the CPU when there is no card):
  1. device: the card's name and power limit (nvidia-smi);
  2. build: every kernel of tpu_fhe_torch/csrc, one nvcc each, in parallel.
 
-Then, for each slice in turn -- the u64 plan (bench.py's primary
+Then, for each plan in turn -- the u64 plan (bench.py's primary
 configuration: N = 2^15, 30 + 15 primes of 50/60 bits, scale 2^50) and the
 q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
 29 data pairs: 60 + 30 primes of 29-30 bits, scale 2^58) --
 
- 3. kernels: each kernel of the slice against its plain torch version on
-    the card, at the slice's full-width keyswitch shapes, integer-exact,
+ 3. kernels: each kernel of the plan against its plain torch version on
+    the card, at the plan's full-width keyswitch shapes, integer-exact,
     with its device time (CUDA events around a CUDA-graph replay of 20
     launches), the plain version's time and the least time the card could
     take; on the q32 plan also K4 and K5 against K1 and K2 on the same
@@ -25,20 +25,32 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
-    the cleartext product; every kernel of the slice must have been
+    the cleartext product; every kernel of the path must have been
     launched during the requests (its counter is set to 0 just before);
     one relinearize is held bit-exact against the plain versions;
  5. timing: keyswitch ms/op and keyswitch/s (relinearize of a random
     size-3 ciphertext, bench.py's median-of-pairs marginal), launches per
     relinearize, and a device-only torch.profiler window of 10
-    relinearizes: kernel time by name and the device's busy share.
+    relinearizes: kernel time by name and the device's busy share;
+ 6. rotations: Galois keys for steps 1, 2, 4, -1 and conjugation (no
+    Shoup words, so the inner product is K7 on the u64 plan and K9 on the
+    q32 plan), then 2 requests of encode -> encrypt -> rotate by 1, 2, -1
+    and by 3 (no key: -1 then +4) -> conjugate -> hoisted rotation sum over
+    steps 0, 1, 2, 4 -> decrypt -> decode, each within 1e-6 of np.roll /
+    conj / the sum of rolls (results are mod-dropped to a few limbs before
+    decryption); every kernel of the path launched (counters set to 0
+    first); one rotate and one hoisted sum held bit-exact against the plain
+    versions; rotate ms/op and rotations/s (median-of-pairs marginal),
+    launches per rotate, a profiler window of 10 rotates, and a hoisted sum
+    over 4 steps against 4 separate rotates and 3 adds.
 
-Last, the kernels line (every kernel of both slices) and the line
+Last, the kernels line (every kernel of both plans) and the line
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import subprocess
 import sys
@@ -56,6 +68,9 @@ COMPOSITE = dict(scale_bits=58, levels=29, degree=2, anchor_bits=30, special_bit
                  special_count=30)
 SCALE32 = 2.0 ** 58
 REQUESTS = 4
+ROT_REQUESTS = 2
+ROT_STEPS = [1, 2, 4, -1]                # Galois keys (and conjugation)
+HOIST_STEPS = (0, 1, 2, 4)
 TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
 # 32-bit integer multiply-add rate: Hopper issues half as many IMAD as
@@ -188,6 +203,12 @@ class Checker:
     def launches(self) -> dict:
         return {name: k.launches for name, k in self.kernels.items()}
 
+    def require_launched(self, tag: str, launches: dict, off_path: tuple) -> None:
+        """Fail unless every kernel but those `off_path` was launched."""
+        for name, count in launches.items():
+            if name not in off_path and count <= 0:
+                fail(f"kernel {name} was not launched on the {tag} path")
+
     def line(self, launches: dict) -> list:
         out = []
         for name, k in self.kernels.items():
@@ -251,7 +272,8 @@ def u64_slice(card: str) -> list:
     residues = residue_maker(ctx.device, N, 2024)
 
     # -- 3. kernels against their plain versions ---------------------------
-    ck = Checker([ntt.NTT_FWD, ntt.NTT_FWD_LANDING, ntt.NTT_INV, bconv.BCONV, ks.KS_SHOUP])
+    ck = Checker([ntt.NTT_FWD, ntt.NTT_FWD_LANDING, ntt.NTT_INV, bconv.BCONV, ks.KS_SHOUP,
+                  ks.KS])
     L = level.size                                      # 30
     P = kst.p_ntt.num_limbs                             # 15
     dig = kst.digits[0]
@@ -294,34 +316,45 @@ def u64_slice(card: str) -> list:
              lambda: bconv.bconv_matmul_plain(s2, *mtab), 8 * N * 2 * (P + L),
              2 * 2 * P * L * N * IMAD_PER_MUL64)
     beta = kst.beta
-    qlp = kst.qlp_q
-    t = residues(qlp, beta)
+    qlp = kst.qlp_mod
+    t = residues(qlp.q, beta)
     kq = ctx.key_level.mod
     evk = residues(kq.q, 3, 2)
     evk_s = mm.shoup_of(evk, kq.q, kq.ratio_lo, kq.ratio_hi)
     rows = kst.qlp_key_rows
     ck.check("key_inner_prod_shoup", "(2, 45, 2^15)",
-             lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp),
-             lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp),
+             lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp.q),
+             lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp.q),
              8 * N * (beta * (L + P) + 2 * 2 * beta * (L + P) + 2 * (L + P)),
              3 * 2 * beta * (L + P) * N * IMAD_PER_MUL64, headline=True)
-    del x, x2, sub, xs, xp, s, s2, t, evk, evk_s
+    # K7: a Galois key without Shoup words, dnum = beta = 2 digits; per
+    # output word beta 64x64 -> 128 products and one Barrett landing (6
+    # 64-bit products)
+    gkey = residues(kq.q, beta, 2)
+    kargs = (rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi)
+    ck.check("key_inner_prod", "(2, 45, 2^15)",
+             lambda: ks.key_inner_prod(t, gkey, *kargs),
+             lambda: ks.key_inner_prod_plain(t, gkey, *kargs),
+             8 * N * (beta * (L + P) + 2 * beta * (L + P) + 2 * (L + P)),
+             2 * (L + P) * N * (2 * beta + 6) * IMAD_PER_MUL64, headline=True)
+    del x, x2, sub, xs, xp, s, s2, t, evk, evk_s, gkey
 
     # -- 4. the slice: keys, then REQUESTS requests ---------------------
-    launches, products, rlk = run_requests("u64", ctx, ck, SCALE,
-                                           lambda c: ev.rescale_to_next(ctx, c))
-    got = ev.relinearize(ctx, products[0], rlk).data
-    want = plain_relinearize(ctx, level, products[0].data, rlk)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("u64 relinearize through the kernels differs from the plain versions")
-    log("[u64 slice] relinearize: kernels == plain versions, bit for bit")
+    launches, products, rlk, sk = run_requests("u64", ctx, ck, SCALE,
+                                               lambda c: ev.rescale_to_next(ctx, c),
+                                               off_path=("key_inner_prod",))
+    same_as_plain("u64", "relinearize", ck, lambda: [ev.relinearize(ctx, products[0], rlk)])
 
     # -- 5. keyswitch timing ----------------------------------------------
     ct3 = Ciphertext(torch.stack([residues(level.mod.q) for _ in range(3)]), chain_index=1,
                      scale=SCALE)
     keyswitch_timing("u64", "chain index 1, 30 + 15 limbs", ctx, ct3, rlk, ck, card)
-    return ck.line(launches)
+    del ct3, products
+
+    # -- 6. rotations -----------------------------------------------------
+    rot = rotation_phase("u64", ctx, ck, sk, SCALE, keep=2, off_path=("key_inner_prod_shoup",),
+                         card=card)
+    return ck.line({name: launches[name] + rot[name] for name in launches})
 
 
 # --------------------------------------------------------------------------
@@ -355,7 +388,7 @@ def q32_slice(card: str) -> list:
 
     # -- 3. kernels at the keyswitch shapes of the 59-limb level ------------
     ck = Checker([ntt.NTT_FWD32, ntt.NTT_FWD_LANDING32, ntt.NTT_INV32, bconv.BCONV32,
-                  ks.KS_SHOUP32])
+                  ks.KS_SHOUP32, ks.KS32])
     level = ctx.level(2)                                # 59 Q limbs
     kst = level.ks
     L, P = level.size, kst.p_ntt.num_limbs              # 59, 30
@@ -400,16 +433,23 @@ def q32_slice(card: str) -> list:
     ck.check("bconv32", "30 -> 59, (2, 30, 2^15)", lambda: bconv.bconv_matmul32(s2, *tab),
              lambda: bconv.bconv_matmul32_plain(s2, *tab), 4 * N * 2 * (P + L),
              2 * P * L * N * IMAD_PER_WIDE32)
-    qlp, rows = kst.qlp_q, kst.qlp_key_rows
-    t = residues(qlp, kst.beta)
+    qlp, rows = kst.qlp_mod, kst.qlp_key_rows
+    t = residues(qlp.q, kst.beta)
     kq = ctx.key_level.mod
     evk = residues(kq.q, 2, 2)
     evk_s = mm.shoup32_of(evk, kq.q)
     ck.check("key_inner_prod_shoup32", "t (2, 89, 2^15), key (2, 2, 90, 2^15)",
-             lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp),
-             lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp),
+             lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp.q),
+             lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp.q),
              4 * N * (2 * (L + P) + 2 * 2 * 2 * (L + P) + 2 * (L + P)),
              3 * 2 * 2 * (L + P) * N * IMAD_PER_MUL32, headline=True)
+    # K9: the same key rows without Shoup words; per output word beta
+    # 32x32 -> 64 products and the word fold (7 32-bit products)
+    ck.check("key_inner_prod32", "t (2, 89, 2^15), key (2, 2, 90, 2^15)",
+             lambda: ks.key_inner_prod32(t, evk, rows, qlp.q, qlp.fold),
+             lambda: ks.key_inner_prod32_plain(t, evk, rows, qlp.q, qlp.fold),
+             4 * N * (2 * (L + P) + 2 * 2 * (L + P) + 2 * (L + P)),
+             2 * (L + P) * N * (2 * IMAD_PER_WIDE32 + 7 * IMAD_PER_MUL32), headline=True)
     # K4 and K5 compute K1's and K2's function: the same 30-bit moduli
     # through int64 tables, bit for bit
     wide = ntt.build_device_ntt_tables(
@@ -423,15 +463,10 @@ def q32_slice(card: str) -> list:
     del x, xp, sub, xs, s, s2, t, evk, evk_s, wide, x64
 
     # -- 4. the q32 requests ------------------------------------------------
-    launches, products, rlk = run_requests("q32", ctx, ck, SCALE32,
-                                           lambda c: ev.rescale_composite(ctx, c))
-    level1 = ctx.level(1)
-    got = ev.relinearize(ctx, products[0], rlk).data
-    want = plain_relinearize(ctx, level1, products[0].data, rlk)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        fail("q32 relinearize through the kernels differs from the plain versions")
-    log("[q32 slice] relinearize: kernels == plain versions, bit for bit")
+    launches, products, rlk, sk = run_requests("q32", ctx, ck, SCALE32,
+                                               lambda c: ev.rescale_composite(ctx, c),
+                                               off_path=("key_inner_prod32",))
+    same_as_plain("q32", "relinearize", ck, lambda: [ev.relinearize(ctx, products[0], rlk)])
 
     # -- 5. keyswitch timing: the 59-limb level, then bench.py's level(1) ---
     for ci in (2, 1):
@@ -440,16 +475,22 @@ def q32_slice(card: str) -> list:
                          scale=SCALE32)
         keyswitch_timing("q32", f"chain index {ci}, {lv.size} + {P} limbs", ctx, ct3, rlk,
                          ck, card, profile=ci == 2)
-    return ck.line(launches)
+    del ct3, products
+
+    # -- 6. rotations -----------------------------------------------------
+    rot = rotation_phase("q32", ctx, ck, sk, SCALE32, keep=4,
+                         off_path=("key_inner_prod_shoup32",), card=card)
+    return ck.line({name: launches[name] + rot[name] for name in launches})
 
 
 # --------------------------------------------------------------------------
 # shared phases
 # --------------------------------------------------------------------------
 
-def run_requests(tag: str, ctx, ck: Checker, scale: float, rescale):
+def run_requests(tag: str, ctx, ck: Checker, scale: float, rescale, off_path: tuple):
     """Keys, then REQUESTS requests at chain index 1; returns the launch
-    counts of the requests, the products and the relin key."""
+    counts of the requests, the products, the relin key and the secret
+    key.  Every kernel but those `off_path` must have been launched."""
     import torch
 
     from tpu_fhe_torch.eval import evaluator as ev
@@ -494,51 +535,58 @@ def run_requests(tag: str, ctx, ck: Checker, scale: float, rescale):
         products.append(prod)
     launches = ck.launches()
     log(f"[{tag} slice] launches over {REQUESTS} requests: {launches}")
-    for name, count in launches.items():
-        if count <= 0:
-            fail(f"kernel {name} was not launched on the {tag} slice")
-    return launches, products, rlk
+    ck.require_launched(f"{tag} relinearize", launches, off_path)
+    return launches, products, rlk, sk
+
+
+def marginal_ms(tag: str, fn, iters: int = 50) -> tuple[float, float, int]:
+    """bench.py's median-of-pairs marginal time of `fn` (CUDA events over
+    2 and 2 + iters calls, 5 pairs): (ms per call, spread, pairs kept)."""
+    import torch
+
+    def timed(reps: int) -> float:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end)
+
+    timed(2)
+    samples = []
+    for _ in range(5):
+        short, long_ = timed(2), timed(2 + iters)
+        if long_ > short:
+            samples.append((long_ - short) / iters)
+    if not samples:
+        fail(f"{tag} timing gave no positive marginal")
+    samples.sort()
+    ms = samples[len(samples) // 2]
+    return ms, (samples[-1] - samples[0]) / ms, len(samples)
 
 
 def keyswitch_timing(tag: str, where: str, ctx, ct3, rlk, ck: Checker, card: str,
                      profile: bool = True) -> None:
     """bench.py's median-of-pairs marginal keyswitch time, launches per
     relinearize and (with `profile`) a device-only profiler window."""
-    import torch
-
     from tpu_fhe_torch.eval import evaluator as ev
 
-    def timed(reps: int) -> float:
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            ev.relinearize(ctx, ct3, rlk)
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end)
+    def relin():
+        return ev.relinearize(ctx, ct3, rlk)
 
-    timed(2)
-    iters, samples = 50, []
-    for _ in range(5):
-        short, long_ = timed(2), timed(2 + iters)
-        if long_ > short:
-            samples.append((long_ - short) / iters)
-    if not samples:
-        fail(f"{tag} keyswitch timing gave no positive marginal")
-    samples.sort()
-    ks_ms = samples[len(samples) // 2]
-    spread = (samples[-1] - samples[0]) / ks_ms
+    ks_ms, spread, pairs = marginal_ms(f"{tag} keyswitch", relin)
     log(f"[{tag} keyswitch] {where}: {ks_ms:.4f} ms/op, {1e3 / ks_ms:.2f} keyswitch/s "
-        f"(median of {len(samples)} marginal pairs, spread {spread * 100:.0f}%) on {card}")
+        f"(median of {pairs} marginal pairs, spread {spread * 100:.0f}%) on {card}")
     ck.reset()
-    ev.relinearize(ctx, ct3, rlk)
+    relin()
     log(f"[{tag} keyswitch] launches per relinearize: {ck.launches()}")
     if profile:
-        profile_relinearize(tag, lambda: ev.relinearize(ctx, ct3, rlk))
+        profile_ops(tag, relin, "relinearize")
 
 
-def profile_relinearize(tag: str, fn, reps: int = 10) -> None:
-    """Device time by kernel over `reps` relinearizes (torch.profiler,
+def profile_ops(tag: str, fn, what: str, reps: int = 10) -> None:
+    """Device time by kernel over `reps` calls of `fn` (torch.profiler,
     device activity only, so that host tracing does not stretch the
     window), and the device's busy share of the window timed with CUDA
     events."""
@@ -561,42 +609,152 @@ def profile_relinearize(tag: str, fn, reps: int = 10) -> None:
     if busy_ms <= 0:
         log(f"[{tag} profile] the profiler saw no device time: busy share not measured")
         return
-    log(f"[{tag} profile] {reps} relinearizes: window {window_ms:.3f} ms, device busy "
+    log(f"[{tag} profile] {reps} {what}s: window {window_ms:.3f} ms, device busy "
         f"{busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), idle "
         f"{100 * (1 - busy_ms / window_ms):.1f}%")
     for e in sorted(device, key=lambda e: -e.self_device_time_total):
-        log(f"[{tag} profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/relinearize  "
+        log(f"[{tag} profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/{what}  "
             f"{e.count / reps:g} calls  {e.key[:90]}")
 
 
-def plain_relinearize(ctx, level, data, rlk):
-    """evaluator.relinearize composed from the plain versions only."""
+@contextlib.contextmanager
+def plain_versions():
+    """Within this block the evaluator (and hoisting, which calls its
+    keyswitch stages) computes through the kernels' plain torch versions,
+    on the same CUDA tensors: the names it calls are swapped for them."""
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.ops import bconv, ks, ntt
+
+    swaps = dict(
+        forward_ntt=ntt.forward_ntt_plain, inverse_ntt=ntt.inverse_ntt_plain,
+        inverse_ntt_scaled=ntt.inverse_ntt_plain,
+        forward_ntt_sub_scale=ntt.forward_ntt_sub_scale_plain,
+        bconv_matmul=bconv.bconv_matmul_plain, bconv_matmul32=bconv.bconv_matmul32_plain,
+        key_inner_prod=ks.key_inner_prod_plain, key_inner_prod32=ks.key_inner_prod32_plain,
+        key_inner_prod_shoup=ks.key_inner_prod_shoup_plain)
+    saved = {name: getattr(ev, name) for name in swaps}
+    for name, fn in swaps.items():
+        setattr(ev, name, fn)
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(ev, name, fn)
+
+
+def same_as_plain(tag: str, what: str, ck: Checker, run) -> None:
+    """`run()` (a list of ciphertexts) through the kernels equals the same
+    through the plain versions, bit for bit; the plain run launches
+    nothing."""
     import torch
 
-    from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+    got = [c.data for c in run()]
+    ck.reset()
+    with plain_versions():
+        want = [c.data for c in run()]
+    torch.cuda.synchronize()
+    if any(ck.launches().values()):
+        fail(f"{tag} {what}: the run through the plain versions launched kernels")
+    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+        fail(f"{tag} {what} through the kernels differs from the plain versions")
+    log(f"[{tag} slice] {what}: kernels == plain versions, bit for bit")
 
-    def conv(x, table, out):
-        if out.fold is not None:
-            return bconv.bconv_matmul32_plain(x, table, out.q)
-        return bconv.bconv_matmul_plain(x, table, out.q, out.ratio_lo, out.ratio_hi)
 
-    kst = level.ks
-    c2 = data[2].contiguous()
-    scaled = ntt.inverse_ntt_plain(c2, level.ntt, kst.part_qhatinv, kst.part_qhatinv_shoup)
-    digits = []
-    for dt in kst.digits:
-        up = ntt.forward_ntt_plain(conv(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.comp_mod),
-                                   dt.comp_ntt)
-        digits.append(torch.cat([up[: dt.start], c2[dt.start:dt.end], up[dt.start:]]))
-    cx = ks.key_inner_prod_shoup_plain(torch.stack(digits), rlk.data, rlk.shoup,
-                                       kst.qlp_key_rows, kst.qlp_q)
-    size_ql = level.size
-    p_scaled = ntt.inverse_ntt_plain(cx[:, size_ql:].contiguous(), kst.p_ntt, kst.p_hatinv,
-                                     kst.p_hatinv_shoup)
-    delta = conv(p_scaled, kst.p_hat_mod_q, level.mod)
-    down = ntt.forward_ntt_sub_scale_plain(delta, cx[:, :size_ql], level.ntt,
-                                           kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
-    return mm.add_mod(data[:2], down, level.mod.q)
+def rotation_phase(tag: str, ctx, ck: Checker, sk, scale: float, keep: int, off_path: tuple,
+                   card: str) -> dict:
+    """Phase 6: Galois keys, ROT_REQUESTS rotation requests at chain index
+    1 (results mod-dropped to `keep` limbs before decryption), the launch
+    and bit-exact checks, and the rotation timings.  Returns the launch
+    counts of the requests."""
+    import torch
+
+    from tpu_fhe_torch.eval import evaluator as ev, hoisting as ho
+    from tpu_fhe_torch.scheme.ciphertext import Ciphertext
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+
+    t0 = time.time()
+    gk = sk.galois_key(ROT_STEPS, include_conj=True)
+    torch.cuda.synchronize()
+    key = next(iter(gk.keys.values()))
+    log(f"[{tag} keygen] galois_key({ROT_STEPS}, include_conj=True): {len(gk.keys)} keys "
+        f"{tuple(key.data.shape)} {key.data.dtype}, Shoup words: {key.shoup is not None}: "
+        f"{time.time() - t0:.1f} s")
+    enc = CkksEncoder(ctx)
+    rng = np.random.default_rng(9)
+
+    def decoded(ct):
+        while ctx.level(ct.chain_index).size > keep:
+            ct = ev.mod_drop_to_next(ctx, ct)
+        return enc.decode(sk.decrypt(ct))
+
+    ck.reset()
+    cts = []
+    for r in range(ROT_REQUESTS):
+        x = rng.standard_normal(N // 2) + 1j * rng.standard_normal(N // 2)
+        t0 = time.time()
+        ct = sk.encrypt_symmetric(enc.encode(x, scale))
+        torch.cuda.synchronize()
+        t1 = time.time()
+        outs = {f"rotate {s}": (ev.rotate(ctx, ct, s, gk), np.roll(x, -s)) for s in (1, 2, -1, 3)}
+        outs["conjugate"] = (ev.conjugate(ctx, ct, gk), np.conj(x))
+        outs[f"hoisted sum {HOIST_STEPS}"] = (ho.hoisted_rotation_sum(ctx, ct, HOIST_STEPS, gk),
+                                              sum(np.roll(x, -s) for s in HOIST_STEPS))
+        torch.cuda.synchronize()
+        t2 = time.time()
+        errs = {}
+        for name, (out, want) in outs.items():
+            got = decoded(out)
+            if got.shape != (N // 2,) or not np.all(np.isfinite(got)):
+                fail(f"{tag} rotation request {r}, {name}: decoded {got.shape} with "
+                     "non-finite values")
+            errs[name] = float(np.max(np.abs(got - want)))
+        t3 = time.time()
+        log(f"[{tag} rotation request {r}] encode+encrypt {t1 - t0:.3f} s, 6 operations "
+            f"{(t2 - t1) * 1e3:.2f} ms, drop to {keep} limbs+decrypt+decode {t3 - t2:.2f} s; "
+            "max err " + ", ".join(f"{k} {v:.3e}" for k, v in errs.items()))
+        for name, err in errs.items():
+            if not err <= TOL:
+                fail(f"{tag} rotation request {r}, {name}: max error {err} > {TOL}")
+        cts.append(ct)
+    launches = ck.launches()
+    log(f"[{tag} rotations] launches over {ROT_REQUESTS} requests: {launches}")
+    ck.require_launched(f"{tag} rotation", launches, off_path)
+
+    ct = cts[0]
+    same_as_plain(tag, "rotate and hoisted_rotation_sum", ck,
+                  lambda: [ev.rotate(ctx, ct, 1, gk),
+                           ho.hoisted_rotation_sum(ctx, ct, HOIST_STEPS, gk)])
+
+    def rotate():
+        return ev.rotate(ctx, ct, 1, gk)
+
+    rot_ms, spread, pairs = marginal_ms(f"{tag} rotate", rotate)
+    log(f"[{tag} rotate] chain index 1, {ctx.level(1).size} + {ctx.params.size_P} limbs: "
+        f"{rot_ms:.4f} ms/op, {1e3 / rot_ms:.2f} rotations/s (median of {pairs} marginal "
+        f"pairs, spread {spread * 100:.0f}%) on {card}")
+    ck.reset()
+    rotate()
+    log(f"[{tag} rotate] launches per rotate: {ck.launches()}")
+    profile_ops(tag, rotate, "rotate")
+
+    steps = tuple(ROT_STEPS)
+
+    def separate() -> Ciphertext:
+        acc = ev.rotate(ctx, ct, steps[0], gk)
+        for s in steps[1:]:
+            acc = ev.add(ctx, acc, ev.rotate(ctx, ct, s, gk))
+        return acc
+
+    def hoisted() -> Ciphertext:
+        return ho.hoisted_rotation_sum(ctx, ct, steps, gk)
+
+    hoist_ms, hoist_spread, _ = marginal_ms(f"{tag} hoisted", hoisted, iters=20)
+    sep_ms, sep_spread, _ = marginal_ms(f"{tag} separate", separate, iters=20)
+    log(f"[{tag} hoisting] sum of rotations by {steps}: hoisted_rotation_sum {hoist_ms:.4f} "
+        f"ms (spread {hoist_spread * 100:.0f}%), {len(steps)} rotates + {len(steps) - 1} adds "
+        f"{sep_ms:.4f} ms (spread {sep_spread * 100:.0f}%): {sep_ms / hoist_ms:.2f}x on {card}")
+    profile_ops(tag, hoisted, "hoisted sum", reps=5)
+    return launches
 
 
 if __name__ == "__main__":

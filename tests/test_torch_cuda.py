@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on the card:
-the u64 plan's (K1-K3, K8, K11) on a 50/60-bit chain, the q32 plan's (K4-K6,
-K10, K13) on a composite chain of 30-bit primes, and each slice on the card
-against the same slice on the CPU.
+the u64 plan's (K1-K3, K7, K8, K11) on a 50/60-bit chain, the q32 plan's
+(K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, and each slice
+(relinearize and rescale; rotate, conjugate and the hoisted rotation sum)
+on the card against the same slice on the CPU.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
 nvcc; without a card they skip.  They import neither jax nor tpu_fhe, so
@@ -17,13 +18,14 @@ import torch
 from tpu_fhe_torch.core.modulus import CoeffModulus
 from tpu_fhe_torch.core.ntt_tables import make_ntt_tables
 from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
-from tpu_fhe_torch.eval import evaluator as ev
+from tpu_fhe_torch.eval import evaluator as ev, hoisting as ho
 from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
 from tpu_fhe_torch.ops.ntt import build_device_ntt_tables
 from tpu_fhe_torch.scheme.context import FheContext
 from tpu_fhe_torch.scheme.keys import SecretKey
 from tpu_fhe_torch.utils.convert import (
-    ciphertext_from_np, relin_key_from_np, relin_key_to_np, to_numpy,
+    ciphertext_from_np, galois_key_from_np, galois_key_to_np, relin_key_from_np,
+    relin_key_to_np, to_numpy,
 )
 
 pytestmark = pytest.mark.cuda
@@ -86,9 +88,48 @@ def test_bconv_and_inner_product_equal_plain(ctx):
     kq = ctx.key_level.mod
     evk = _res(ctx, kq.q, 3, 2)
     evk_s = mm.shoup_of(evk, kq.q, kq.ratio_lo, kq.ratio_hi)
-    t = _res(ctx, kst.qlp_q, kst.beta)
-    args = (t, evk, evk_s, kst.qlp_key_rows, kst.qlp_q)
+    t = _res(ctx, kst.qlp_mod.q, kst.beta)
+    args = (t, evk, evk_s, kst.qlp_key_rows, kst.qlp_mod.q)
     assert torch.equal(ks.key_inner_prod_shoup(*args), ks.key_inner_prod_shoup_plain(*args))
+
+
+def test_inner_product_without_shoup_equals_plain(ctx):
+    """K7 at chain index 1 (beta = 3) and 4 (beta = 1 < dnum: the P rows of
+    the key are no prefix of QlP's)."""
+    kq = ctx.key_level.mod
+    evk = _res(ctx, kq.q, 3, 2)
+    for ci in (1, 4):
+        kst = ctx.level(ci).ks
+        qlp = kst.qlp_mod
+        t = _res(ctx, qlp.q, kst.beta, seed=ci)
+        args = (t, evk, kst.qlp_key_rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi)
+        assert torch.equal(ks.key_inner_prod(*args), ks.key_inner_prod_plain(*args))
+
+
+def _rotation_outputs(c, ct, gk):
+    return [ev.rotate(c, ct, 1, gk), ev.rotate(c, ct, 3, gk), ev.conjugate(c, ct, gk),
+            ho.hoisted_rotation_sum(c, ct, (0, 1, -1, 4), gk)]
+
+
+def _rotations_equal_cpu(gpu_ctx, word):
+    """rotate (keyed and NAF-composed), conjugate and a hoisted sum on the
+    card equal the same calls on a CPU context, with one key set."""
+    cpu = FheContext(gpu_ctx.params, device="cpu")
+    keys = galois_key_to_np(SecretKey(cpu, seed=3).galois_key([1, -1, 4], include_conj=True))
+    rng = np.random.default_rng(6)
+    qs = np.array(cpu.level(1).base.values, dtype=np.uint64)[:, None]
+    c2 = (rng.integers(0, 2**62, size=(2, len(qs), cpu.n), dtype=np.uint64) % qs).astype(word)
+    outs = []
+    for c in (cpu, gpu_ctx):
+        ct = ciphertext_from_np(c, c2, 1, 2.0 ** 40)
+        outs.append([to_numpy(o.data) for o in
+                     _rotation_outputs(c, ct, galois_key_from_np(c, keys))])
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_rotations_equal_cpu(ctx):
+    _rotations_equal_cpu(ctx, np.uint64)
 
 
 def test_relinearize_rescale_equal_cpu(ctx):
@@ -114,6 +155,23 @@ def test_wrappers_refuse_bad_input(ctx):
         ntt.forward_ntt(x.transpose(0, 1).contiguous().transpose(0, 1), level.ntt)
     with pytest.raises(ValueError):
         ntt.forward_ntt(x[:, :3], level.ntt)
+    kst = level.ks
+    qlp = kst.qlp_mod
+    t = _res(ctx, qlp.q, kst.beta)
+    evk = _res(ctx, ctx.key_level.mod.q, 3, 2)
+    args = (kst.qlp_key_rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi)
+    with pytest.raises(ValueError):                              # wrong word
+        ks.key_inner_prod(t.to(torch.int32), evk, *args)
+    with pytest.raises(ValueError):                              # key on the CPU
+        ks.key_inner_prod(t, evk.cpu(), *args)
+    with pytest.raises(ValueError, match="beta"):                # beta > 64
+        ks.key_inner_prod(t[:1].expand(65, -1, -1).contiguous(), evk, *args)
+    with pytest.raises(ValueError):                              # key of another N
+        ks.key_inner_prod(t, evk[..., :-1].contiguous(), *args)
+    with pytest.raises(ValueError):                              # fold of the wrong shape
+        ks.key_inner_prod32(t.to(torch.int32), evk.to(torch.int32), kst.qlp_key_rows,
+                            qlp.q.to(torch.int32), torch.zeros((5, 1, 1), dtype=torch.int64,
+                                                               device=ctx.device))
 
 
 # -- the q32 plan ------------------------------------------------------------
@@ -192,9 +250,33 @@ def test_q32_bconv_and_inner_product_equal_plain(ctx32):
     kq = ctx32.key_level.mod
     evk = _res32(ctx32, kq.q, 2, 2)
     evk_s = mm.shoup32_of(evk, kq.q)
-    t = _res32(ctx32, kst.qlp_q, kst.beta)
-    args = (t, evk, evk_s, kst.qlp_key_rows, kst.qlp_q)
+    t = _res32(ctx32, kst.qlp_mod.q, kst.beta)
+    args = (t, evk, evk_s, kst.qlp_key_rows, kst.qlp_mod.q)
     assert torch.equal(ks.key_inner_prod_shoup(*args), ks.key_inner_prod_shoup_plain(*args))
+
+
+def test_q32_inner_product_without_shoup_equals_plain(ctx32):
+    """K9 at chain index 1 (QlP is all 10 key rows) and 2 (9 of them), then
+    with 40 digits of a synthetic key, whose 96-bit sums use the carry
+    word."""
+    kq = ctx32.key_level.mod
+    evk = _res32(ctx32, kq.q, 2, 2)
+    for ci in (1, 2):
+        kst = ctx32.level(ci).ks
+        qlp = kst.qlp_mod
+        t = _res32(ctx32, qlp.q, kst.beta, seed=ci)
+        args = (t, evk, kst.qlp_key_rows, qlp.q, qlp.fold)
+        assert torch.equal(ks.key_inner_prod32(*args), ks.key_inner_prod32_plain(*args))
+    kst = ctx32.level(1).ks
+    qlp = kst.qlp_mod
+    big = _res32(ctx32, kq.q, 40, 2, seed=9)
+    t = _res32(ctx32, qlp.q, 40, seed=10)
+    args = (t, big, kst.qlp_key_rows, qlp.q, qlp.fold)
+    assert torch.equal(ks.key_inner_prod32(*args), ks.key_inner_prod32_plain(*args))
+
+
+def test_q32_rotations_equal_cpu(ctx32):
+    _rotations_equal_cpu(ctx32, np.uint32)
 
 
 def test_q32_relinearize_rescale_composite_equal_cpu(ctx32):

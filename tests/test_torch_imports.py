@@ -1,6 +1,7 @@
 """tpu_fhe_torch and chip_smoke.py import neither jax nor tpu_fhe, and the
-port's slices (the u64 plan's and the q32 plan's modules alike) run with
-both blocked."""
+port's slices (the u64 plan's and the q32 plan's modules alike, and the
+rotation path of ops/galois.py and eval/hoisting.py) run with both
+blocked."""
 
 import re
 import subprocess
@@ -66,6 +67,43 @@ def test_q32_slice_runs_with_jax_blocked():
         "                                               sk.relin_key()))\n"
         "assert out.data.dtype == torch.int32 and out.chain_index == 3\n"
         "assert np.max(np.abs(enc.decode(sk.decrypt(out)).real - x * x)) < 1e-9\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_rotation_path_runs_with_jax_blocked():
+    """Galois keys, rotate (keyed and NAF-composed), conjugate and a hoisted
+    rotation sum on the CPU, in a process where importing jax or tpu_fhe
+    fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "import numpy as np\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.eval import evaluator as ev, hoisting as ho\n"
+        "from tpu_fhe_torch.ops import galois\n"
+        "from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "n = 1024\n"
+        "ctx = FheContext(EncryptionParameters(SchemeType.ckks, n,\n"
+        "    tuple(CoeffModulus.create(n, [60, 40, 40, 60])), special_modulus_size=1,\n"
+        "    allow_insecure=True), device='cpu')\n"
+        "sk, enc = SecretKey(ctx, seed=1), CkksEncoder(ctx)\n"
+        "gk = sk.galois_key([-1, 4], include_conj=True)\n"
+        "x = np.random.default_rng(0).standard_normal(n // 2) * (1 + 1j)\n"
+        "ct = sk.encrypt_symmetric(enc.encode(x, 2.0 ** 40))\n"
+        "def err(c, want):\n"
+        "    return np.max(np.abs(enc.decode(sk.decrypt(c)) - want))\n"
+        "assert err(ev.rotate(ctx, ct, 3, gk), np.roll(x, -3)) < 1e-6\n"
+        "assert err(ev.conjugate(ctx, ct, gk), np.conj(x)) < 1e-6\n"
+        "assert err(ho.hoisted_rotation_sum(ctx, ct, (0, -1, 4), gk),\n"
+        "           x + np.roll(x, 1) + np.roll(x, -4)) < 1e-6\n"
+        "assert galois.conj_elt(n) in gk.keys\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

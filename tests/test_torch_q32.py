@@ -233,13 +233,13 @@ def test_inner_product_plain_k10_matches_pallas(case):
     tctx, jctx = case["tctx"], case["jctx"]
     kst = tctx.level(1).ks
     rng = np.random.default_rng(10)
-    qlp = to_numpy(kst.qlp_q).reshape(-1)
+    qlp = to_numpy(kst.qlp_mod.q).reshape(-1)
     t = uniform(rng, qlp, (kst.beta,)).astype(np.uint32)
     data, shoup = (to_numpy(v) for v in (case["key"].data, case["key"].shoup))
     ref = key_inner_prod_shoup_pallas32(W64(jax.numpy.asarray(t), None), W64(data, None),
                                         shoup, kst.qlp_key_rows.numpy(), qlp)
     got = ks.key_inner_prod_shoup(word_tensor(tctx, t), case["key"].data, case["key"].shoup,
-                                  kst.qlp_key_rows, kst.qlp_q)
+                                  kst.qlp_key_rows, kst.qlp_mod.q)
     np.testing.assert_array_equal(to_numpy(got), np.asarray(ref.lo))
 
 

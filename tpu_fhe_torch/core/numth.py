@@ -2,9 +2,11 @@
 
 The port's own copy of ``tpu_fhe/core/numth.py``, limited to what the CKKS
 slice needs: primality testing, the NTT-friendly prime searches (by bit
-size, and nearest to a target) and minimal primitive 2N-th roots of unity.  The reference's ctypes fast path for the
-prime search is not ported; the pure-Python search below is the same
-deterministic descending walk, so it yields the same primes.
+size, and nearest to a target), minimal primitive 2N-th roots of unity and
+the non-adjacent form that decomposes a rotation step.  The reference's
+ctypes fast path for the prime search is not ported; the pure-Python
+search below is the same deterministic descending walk, so it yields the
+same primes.
 """
 
 from __future__ import annotations
@@ -167,3 +169,21 @@ def gcd(a: int, b: int) -> int:
     while b:
         a, b = b, a % b
     return a
+
+
+def naf(value: int) -> list[int]:
+    """Non-adjacent form of a (possibly negative) integer: signed powers of
+    two, no two adjacent, whose sum is `value` (tpu_fhe/core/numth.py:227).
+    A rotation by a step with no key composes its parts' rotations."""
+    out = []
+    sign = -1 if value < 0 else 1
+    v = abs(value)
+    i = 0
+    while v:
+        if v & 1:
+            z = 2 - (v % 4)
+            out.append(sign * z * (1 << i))
+            v -= z
+        v >>= 1
+        i += 1
+    return out

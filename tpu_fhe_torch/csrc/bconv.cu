@@ -37,34 +37,12 @@
 // for a later change.  What bounds it: bytes, with the multiply count
 // close behind (k word products per output coefficient).
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-typedef unsigned long long u64;
-typedef uint32_t u32;
+#include "modarith.cuh"
 
 namespace {
 
 constexpr int kChunk = 63;
 constexpr int kThreads = 256;
-
-__device__ __forceinline__ u64 csub(u64 a, u64 q) { return a >= q ? a - q : a; }
-
-// Barrett reduction of the 128-bit (hi, lo) by q < 2^61 with
-// floor(2^128/q) = r1:r0 (the same formula as tpu_fhe/ops/modmath.py
-// barrett_reduce_u128).
-__device__ __forceinline__ u64 barrett128(u64 hi, u64 lo, u64 q, u64 r0, u64 r1) {
-  u64 carry = __umul64hi(lo, r0);
-  u64 t2lo = lo * r1, t2hi = __umul64hi(lo, r1);
-  const u64 t1 = t2lo + carry;
-  const u64 t3 = t2hi + (t1 < carry);
-  t2lo = hi * r0;
-  t2hi = __umul64hi(hi, r0);
-  const u64 t1b = t1 + t2lo;
-  carry = t2hi + (t1b < t2lo);
-  const u64 qe = hi * r1 + t3 + carry;
-  return csub(lo - qe * q, q);
-}
 
 __global__ void bconv_kernel(const u64 *__restrict__ s, u64 *__restrict__ out,
                              const u64 *__restrict__ table, const u64 *__restrict__ p,
@@ -80,12 +58,7 @@ __global__ void bconv_kernel(const u64 *__restrict__ s, u64 *__restrict__ out,
   for (int c0 = 0; c0 < k; c0 += kChunk) {
     const int c1 = c0 + kChunk < k ? c0 + kChunk : k;
     u64 hi = 0, lo = 0;
-    for (int c = c0; c < c1; ++c) {
-      const u64 a = src[(size_t)c * n], w = row[c];
-      const u64 plo = a * w;
-      lo += plo;
-      hi += __umul64hi(a, w) + (lo < plo);
-    }
+    for (int c = c0; c < c1; ++c) mac128(hi, lo, src[(size_t)c * n], row[c]);
     res = csub(res + barrett128(hi, lo, pj, r0, r1), pj);
   }
   out[((size_t)b * m + j) * n + i] = res;
@@ -93,24 +66,6 @@ __global__ void bconv_kernel(const u64 *__restrict__ s, u64 *__restrict__ out,
 
 constexpr int kRegK = 32;      // inputs a thread keeps in registers
 constexpr int kOutTile = 8;    // output limbs per thread
-
-__device__ __forceinline__ u32 csub32(u32 a, u32 q) { return a >= q ? a - q : a; }
-
-__device__ __forceinline__ u32 shoup32_lazy(u32 a, u32 w, u32 ws, u32 q) {
-  return a * w - __umulhi(a, ws) * q;
-}
-
-// (w2 : lo) mod q for q < 2^30; fold rows (5, m): floor(2^32/q),
-// 2^32 mod q and its Shoup32 word, 2^64 mod q and its Shoup32 word.
-__device__ __forceinline__ u32 reduce96(u64 lo, u32 w2, u32 q, const u64 *fold, int j, int m) {
-  const u32 w0 = static_cast<u32>(lo), w1 = static_cast<u32>(lo >> 32);
-  const u32 s0 = csub32(w0 - __umulhi(w0, static_cast<u32>(fold[j])) * q, q);
-  const u32 s1 = csub32(
-      shoup32_lazy(w1, static_cast<u32>(fold[m + j]), static_cast<u32>(fold[2 * m + j]), q), q);
-  const u32 s2 =
-      shoup32_lazy(w2, static_cast<u32>(fold[3 * m + j]), static_cast<u32>(fold[4 * m + j]), q);
-  return csub32(csub32(s0 + s1 + s2, 2 * q), q);   // s0 + s1 + s2 < 4q
-}
 
 __global__ void bconv32_kernel(const u32 *__restrict__ s, u32 *__restrict__ out,
                                const u32 *__restrict__ table, const u32 *__restrict__ p,
@@ -130,17 +85,9 @@ __global__ void bconv32_kernel(const u32 *__restrict__ s, u32 *__restrict__ out,
     u32 hi = 0;
 #pragma unroll
     for (int c = 0; c < kRegK; ++c) {
-      if (c < k) {
-        const u64 prod = static_cast<u64>(x[c]) * row[c];
-        lo += prod;
-        hi += lo < prod;
-      }
+      if (c < k) mac96(hi, lo, x[c], row[c]);
     }
-    for (int c = kRegK; c < k; ++c) {
-      const u64 prod = static_cast<u64>(src[(size_t)c * n]) * row[c];
-      lo += prod;
-      hi += lo < prod;
-    }
+    for (int c = kRegK; c < k; ++c) mac96(hi, lo, src[(size_t)c * n], row[c]);
     out[((size_t)b * m + j) * n + i] = reduce96(lo, hi, p[j], fold, j, m);
   }
 }

@@ -40,28 +40,12 @@
 // A first, simple design: twiddles are read from global memory (L1/L2
 // cached) and there is no radix-4/8 register blocking yet.
 
-#include <cstdint>
-#include <cuda_runtime.h>
-
-typedef unsigned long long u64;
-typedef uint32_t u32;
+#include "modarith.cuh"
 
 namespace {
 
 constexpr int kColTile = 16;       // columns per block in the column phase
 constexpr int kColThreads = 256;
-
-__device__ __forceinline__ u64 mulhi(u64 a, u64 b) { return __umul64hi(a, b); }
-__device__ __forceinline__ u32 mulhi(u32 a, u32 b) { return __umulhi(a, b); }
-
-// a * w mod q in [0, 2q) for any a below 2^word, ws = floor(w * 2^word / q)
-template <typename W>
-__device__ __forceinline__ W shoup_lazy(W a, W w, W ws, W q) {
-  return a * w - mulhi(a, ws) * q;
-}
-
-template <typename W>
-__device__ __forceinline__ W csub(W a, W q) { return a >= q ? a - q : a; }
 
 // Harvey forward (Cooley-Tukey) butterfly: x, y in [0, 4q) -> [0, 4q).
 template <typename W>

@@ -1,4 +1,5 @@
-"""CKKS evaluator core: add/sub/multiply, hybrid key switching, rescale.
+"""CKKS evaluator core: add/sub/multiply, hybrid key switching, rescale,
+rotations.
 
 Port of the single-device path of ``tpu_fhe/eval/evaluator.py``, on the
 u64 plan and on the q32 plan of composite scaling:
@@ -6,14 +7,18 @@ u64 plan and on the q32 plan of composite scaling:
   * tensor products are elementwise NTT-domain modmuls over (L, N) planes
     (the single-word ``mul_mod_q32`` on a q32 context);
   * hybrid key switching = modup (iNTT + per-digit fast base conversion to
-    the complement of QlP + NTT) -> beta-digit inner product with the
-    Shoup-form evk -> moddown (BEHZ P->Ql conversion + P^{-1} scale fused
-    into the forward NTT);
+    the complement of QlP + NTT) -> beta-digit inner product with the evk
+    -> moddown (BEHZ P->Ql conversion + P^{-1} scale fused into the
+    forward NTT);
   * rescale divides by q_last with round-half-up via the half-lift trick;
-    ``rescale_composite`` divides by the product of the last limbs at once.
+    ``rescale_composite`` divides by the product of the last limbs at once;
+  * rotations and conjugation keyswitch the unrotated c1 with a fused
+    Galois key and apply the automorphism (a gather) to the result; a step
+    with no key rotates through its NAF decomposition.
 
 The NTT, base conversion and inner product run as CUDA kernels on a CUDA
-context (K1-K3, K8, K11 on the u64 plan; K4-K6, K10, K13 on the q32 plan)
+context (K1-K3, K11 and K8 or K7 on the u64 plan; K4-K6, K13 and K10 or
+K9 on the q32 plan, the inner product by whether the key has Shoup words)
 and as their plain torch versions on a CPU context; the glue between them
 is plain torch.  Every function returns new tensors.
 """
@@ -24,14 +29,15 @@ from dataclasses import replace
 
 import torch
 
-from ..core.numth import invert_mod
+from ..core.numth import invert_mod, naf
 from ..ops import modarith as mm
 from ..ops.bconv import bconv_matmul, bconv_matmul32
-from ..ops.ks import key_inner_prod_shoup
+from ..ops.galois import apply_galois_ntt, conj_elt, galois_elt_from_step
+from ..ops.ks import key_inner_prod, key_inner_prod32, key_inner_prod_shoup
 from ..ops.ntt import forward_ntt, forward_ntt_sub_scale, inverse_ntt, inverse_ntt_scaled
 from ..scheme.ciphertext import Ciphertext, Plaintext
 from ..scheme.context import ContextLevel, FheContext, ModulusVec
-from ..scheme.keys import RelinKey
+from ..scheme.keys import GaloisKey, RelinKey
 
 
 def _check_compatible(a: Ciphertext, b: Ciphertext):
@@ -131,14 +137,17 @@ def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor) -> torch.Tenso
 
 def key_inner_product(ctx: FheContext, level: ContextLevel, t_mod_up: torch.Tensor,
                       key: RelinKey) -> torch.Tensor:
-    """(beta, size_QlP, N) x evk -> (2, size_QlP, N).  Only Shoup-form keys
-    (the relin key's default) are supported in this slice."""
-    if key.shoup is None:
-        raise ValueError("key_inner_product needs a key with Shoup words "
-                         "(SecretKey.relin_key(shoup=True))")
+    """(beta, size_QlP, N) x evk -> (2, size_QlP, N): K8/K10 for a key with
+    Shoup words (the relin key's default), K7/K9 for one without (the
+    Galois keys' default)."""
     ks = level.ks
-    return key_inner_prod_shoup(t_mod_up[: ks.beta].contiguous(), key.data, key.shoup,
-                                ks.qlp_key_rows, ks.qlp_q)
+    t = t_mod_up[: ks.beta].contiguous()
+    qlp = ks.qlp_mod
+    if key.shoup is not None:
+        return key_inner_prod_shoup(t, key.data, key.shoup, ks.qlp_key_rows, qlp.q)
+    if qlp.fold is not None:
+        return key_inner_prod32(t, key.data, ks.qlp_key_rows, qlp.q, qlp.fold)
+    return key_inner_prod(t, key.data, ks.qlp_key_rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi)
 
 
 def moddown_from_ntt(ctx: FheContext, level: ContextLevel, cx: torch.Tensor) -> torch.Tensor:
@@ -259,3 +268,52 @@ def mod_drop_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     if a.chain_index + 1 >= len(ctx.chain):
         raise ValueError("already at the last level; cannot drop further")
     return replace(a, data=a.data[:, :-1, :].contiguous(), chain_index=a.chain_index + 1)
+
+
+# --------------------------------------------------------------------------
+# rotations
+# --------------------------------------------------------------------------
+
+def rotate(ctx: FheContext, a: Ciphertext, step: int, gk: GaloisKey) -> Ciphertext:
+    """Rotate the slots left by `step`.  When `gk` has no key for the
+    step, rotate by the parts of its NAF decomposition in turn (each a
+    power of two), so the O(log N) key set of galois_key_power_of_2 serves
+    every step."""
+    elt = galois_elt_from_step(step, ctx.n)
+    if elt == 1:
+        return a
+    try:
+        key = gk.key_for_elt(elt)
+    except ValueError:
+        parts = naf(step)
+        if len(parts) <= 1:
+            raise      # a power-of-two step with no key: nothing to compose
+        out = a
+        slots = ctx.n // 2
+        for s in parts:
+            if abs(s) != slots:
+                out = rotate(ctx, out, s, gk)
+        return out
+    return apply_galois_with_key(ctx, a, elt, key)
+
+
+def conjugate(ctx: FheContext, a: Ciphertext, gk: GaloisKey) -> Ciphertext:
+    return apply_galois(ctx, a, conj_elt(ctx.n), gk)
+
+
+def apply_galois(ctx: FheContext, a: Ciphertext, elt: int, gk: GaloisKey) -> Ciphertext:
+    if elt == 1:
+        return a
+    return apply_galois_with_key(ctx, a, elt, gk.key_for_elt(elt))
+
+
+def apply_galois_with_key(ctx: FheContext, a: Ciphertext, elt: int,
+                          key: RelinKey) -> Ciphertext:
+    """Fused-form automorphism: keyswitch the unrotated c1 with the key
+    Enc_{sigma^-1(s)}(P*s), add c0, then apply sigma to both components."""
+    if a.size != 2:
+        raise ValueError("rotate expects a size-2 ciphertext")
+    level = ctx.level(a.chain_index)
+    d = keyswitch_core(ctx, level, a.data[1].contiguous(), key)
+    c0 = mm.add_mod(a.data[0], d[0], level.mod.q)
+    return a.with_data(apply_galois_ntt(torch.stack([c0, d[1]]), elt, ctx.n))

@@ -1,15 +1,23 @@
-"""Hybrid-keyswitch inner product with a Shoup-form key.
-
-Port of ``tpu_fhe/ops/ks_pallas.py::key_inner_prod_shoup_pallas`` (K8) and,
-for int32 operands of the q32 plan, ``key_inner_prod_shoup_pallas32`` (K10):
+"""Hybrid-keyswitch inner product, port of ``tpu_fhe/ops/ks_pallas.py``:
 
     out[c, l, n] = sum_{d < beta} t[d, l, n] * evk[d, c, limb_map[l], n] mod q_l
 
 The key's rows are picked through ``limb_map`` (the Ql rows, then the P
-rows of the key level), never concatenated.  The CUDA kernels are
-``csrc/ks.cu`` (one template, two words); the plain version sums canonical
-Shoup products mod q, which is the same function.  Shoup words are
-floor(evk * 2^64 / q) on int64 keys and floor(evk * 2^32 / q) on int32 keys.
+rows of the key level), never concatenated.  Four CUDA kernels
+(``csrc/ks.cu``), one per key form and word:
+
+  * ``key_inner_prod`` (K7, ``key_inner_prod_pallas``): int64 operands, a
+    key without Shoup words (the Galois keys' default); 128-bit digit sum,
+    one Barrett landing with floor(2^128/q);
+  * ``key_inner_prod32`` (K9, ``key_inner_prod_pallas32``): int32 operands
+    of the q32 plan; 96-bit digit sum, one word-fold landing with the
+    moduli's ``fold`` rows (``modarith.q32_mul_consts``);
+  * ``key_inner_prod_shoup`` (K8 on int64, K10 on int32 operands,
+    ``key_inner_prod_shoup_pallas(32)``): a key with Shoup words,
+    floor(evk * 2^64 / q) on int64 keys and floor(evk * 2^32 / q) on int32.
+
+Every form computes the same canonical sum.  The plain versions reduce each
+digit product and add mod q.
 """
 
 from __future__ import annotations
@@ -19,6 +27,12 @@ import torch
 from . import modarith as ma
 from ._build import INT, PTR, CudaKernel, ptr
 
+KS = CudaKernel(
+    "key_inner_prod", "ks.cu", "tfhe_ks", [PTR] * 7 + [INT] * 4,
+    "tpu_fhe/ops/ks_pallas.py:54 _kernel (K7)")
+KS32 = CudaKernel(
+    "key_inner_prod32", "ks.cu", "tfhe_ks32", [PTR] * 6 + [INT] * 4,
+    "tpu_fhe/ops/ks_pallas.py:96 _kernel32 (K9)")
 KS_SHOUP = CudaKernel(
     "key_inner_prod_shoup", "ks.cu", "tfhe_ks_shoup", [PTR] * 6 + [INT] * 4,
     "tpu_fhe/ops/ks_pallas.py:116 _kernel_shoup (K8)")
@@ -26,16 +40,116 @@ KS_SHOUP32 = CudaKernel(
     "key_inner_prod_shoup32", "ks.cu", "tfhe_ks_shoup32", [PTR] * 6 + [INT] * 4,
     "tpu_fhe/ops/ks_pallas.py:147 _kernel32_shoup (K10)")
 
+MAX_BETA = 64      # K7: beta * q^2 < 2^128 for q < 2^61
+
+
+def _check(name: str, t: torch.Tensor, keys: tuple, limb_map: torch.Tensor,
+           q: torch.Tensor, dtypes: tuple) -> bool:
+    """The checks every form shares; True when the kernel is to launch (a
+    CUDA tensor), False for the plain version (a CPU tensor)."""
+    beta, L, n = t.shape
+    evk = keys[0]
+    if any(k.shape != evk.shape for k in keys) or evk.dim() != 4 or evk.shape[0] < beta \
+            or evk.shape[1] != 2 or evk.shape[3] != n:
+        raise ValueError(f"{name}: key shape {tuple(evk.shape)} does not fit t "
+                         f"{tuple(t.shape)}")
+    if limb_map.shape != (L,) or q.numel() != L:
+        raise ValueError(f"{name}: limb_map and q need one entry per limb")
+    if t.dtype not in dtypes or limb_map.dtype != torch.int64 \
+            or any(a.dtype != t.dtype for a in (*keys, q)) \
+            or any(a.device != t.device for a in (*keys, limb_map, q)):
+        raise ValueError(f"{name}: operands must share one word ({', '.join(map(str, dtypes))})"
+                         " and one device; limb_map is int64")
+    if not (t.is_contiguous() and all(k.is_contiguous() for k in keys)):
+        raise ValueError(f"{name}: operands must be contiguous")
+    if t.is_cuda:
+        return True
+    if t.device.type != "cpu":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return False
+
+
+def _key_rows(evk: torch.Tensor, d: int, limb_map: torch.Tensor) -> torch.Tensor:
+    return evk[d].index_select(1, limb_map)
+
+
+# --------------------------------------------------------------------------
+# K7 and K9: keys without Shoup words
+# --------------------------------------------------------------------------
+
+def key_inner_prod_plain(t, evk, limb_map, q, ratio_lo, ratio_hi) -> torch.Tensor:
+    beta, L, _ = t.shape
+    q, rlo, rhi = (v.reshape(L, 1) for v in (q, ratio_lo, ratio_hi))
+    out = None
+    for d in range(beta):
+        v = ma.mul_mod(t[d][None], _key_rows(evk, d, limb_map), q, rlo, rhi)
+        out = v if out is None else ma.add_mod(out, v, q)
+    return out
+
+
+def key_inner_prod(t: torch.Tensor, evk: torch.Tensor, limb_map: torch.Tensor,
+                   q: torch.Tensor, ratio_lo: torch.Tensor,
+                   ratio_hi: torch.Tensor) -> torch.Tensor:
+    """u64 plan, a key without Shoup words.  t: (beta <= 64, L, N) digits
+    of the modup; evk: (dnum >= beta, 2, key_rows, N); limb_map: (L,) int64
+    key rows; q, ratio_lo, ratio_hi: (L, 1) moduli of QlP and their
+    Barrett words.  All int64 but limb_map.  Returns (2, L, N)."""
+    beta, L, n = t.shape
+    if beta > MAX_BETA:
+        raise ValueError(f"key_inner_prod: beta = {beta} > {MAX_BETA} overflows the 128-bit sum")
+    if ratio_lo.numel() != L or ratio_hi.numel() != L \
+            or any(r.dtype != torch.int64 or r.device != t.device for r in (ratio_lo, ratio_hi)):
+        raise ValueError("key_inner_prod: ratio_lo and ratio_hi need one int64 entry per limb "
+                         "on the data's device")
+    if not _check("key_inner_prod", t, (evk,), limb_map, q, (torch.int64,)):
+        return key_inner_prod_plain(t, evk, limb_map, q, ratio_lo, ratio_hi)
+    out = torch.empty((2, L, n), dtype=t.dtype, device=t.device)
+    consts = [c.reshape(-1).contiguous() for c in (q, ratio_lo, ratio_hi)]
+    KS(ptr(t), ptr(evk), ptr(limb_map.contiguous()), *(ptr(c) for c in consts), ptr(out),
+       beta, L, evk.shape[2], n)
+    return out
+
+
+def key_inner_prod32_plain(t, evk, limb_map, q, fold=None) -> torch.Tensor:
+    """K9's function in int64: each product is below 2^60, and the running
+    sum is reduced mod q after every digit.  `fold` is not needed here."""
+    beta, L, _ = t.shape
+    q64 = q.reshape(L, 1).to(torch.int64)
+    out = None
+    for d in range(beta):
+        term = t[d][None].to(torch.int64) * _key_rows(evk, d, limb_map).to(torch.int64)
+        out = torch.remainder(term if out is None else out + term, q64)
+    return out.to(torch.int32)
+
+
+def key_inner_prod32(t: torch.Tensor, evk: torch.Tensor, limb_map: torch.Tensor,
+                     q: torch.Tensor, fold: torch.Tensor) -> torch.Tensor:
+    """q32 plan, a key without Shoup words: t, evk and q (moduli < 2^30) as
+    int32, as key_inner_prod; fold (5, L, 1) int64 constants of the QlP
+    moduli.  Exact for any beta.  Returns (2, L, N) int32."""
+    beta, L, n = t.shape
+    if fold.shape != (5, L, 1) or fold.dtype != torch.int64 or fold.device != t.device:
+        raise ValueError(f"key_inner_prod32: fold must be (5, {L}, 1) int64 on the data's "
+                         "device")
+    if not _check("key_inner_prod32", t, (evk,), limb_map, q, (torch.int32,)):
+        return key_inner_prod32_plain(t, evk, limb_map, q)
+    out = torch.empty((2, L, n), dtype=t.dtype, device=t.device)
+    KS32(ptr(t), ptr(evk), ptr(limb_map.contiguous()), ptr(q.reshape(-1).contiguous()),
+         ptr(fold.contiguous()), ptr(out), beta, L, evk.shape[2], n)
+    return out
+
+
+# --------------------------------------------------------------------------
+# K8 and K10: keys with Shoup words
+# --------------------------------------------------------------------------
 
 def key_inner_prod_shoup_plain(t, evk, evk_shoup, limb_map, q) -> torch.Tensor:
     beta, L, _ = t.shape
     qc = q.reshape(L, 1)
     out = None
     for d in range(beta):
-        k = evk[d].index_select(1, limb_map)
-        ks = evk_shoup[d].index_select(1, limb_map)
-        mul = ma.mul_mod_shoup32 if t.dtype == torch.int32 else ma.mul_mod_shoup
-        v = mul(t[d][None], k, ks, qc)
+        k, ks = _key_rows(evk, d, limb_map), _key_rows(evk_shoup, d, limb_map)
+        v = ma.mul_shoup(t[d][None], k, ks, qc)
         out = v if out is None else ma.add_mod(out, v, qc)
     return out
 
@@ -47,25 +161,11 @@ def key_inner_prod_shoup(t: torch.Tensor, evk: torch.Tensor, evk_shoup: torch.Te
     All int64 (u64 plan) or all but limb_map int32 (q32 plan).  Returns
     (2, L, N)."""
     beta, L, n = t.shape
-    if evk.shape != evk_shoup.shape or evk.dim() != 4 or evk.shape[0] < beta \
-            or evk.shape[1] != 2 or evk.shape[3] != n:
-        raise ValueError(f"key_inner_prod_shoup: key shape {tuple(evk.shape)} does not "
-                         f"fit t {tuple(t.shape)}")
-    if limb_map.shape != (L,) or q.numel() != L:
-        raise ValueError("key_inner_prod_shoup: limb_map and q need one entry per limb")
-    if t.dtype not in (torch.int32, torch.int64) or limb_map.dtype != torch.int64 \
-            or any(a.dtype != t.dtype for a in (evk, evk_shoup, q)) \
-            or any(a.device != t.device for a in (evk, evk_shoup, limb_map, q)):
-        raise ValueError("key_inner_prod_shoup: operands must share one word (int64, or "
-                         "int32 on the q32 plan) and one device; limb_map is int64")
-    if not (t.is_contiguous() and evk.is_contiguous() and evk_shoup.is_contiguous()):
-        raise ValueError("key_inner_prod_shoup: operands must be contiguous")
-    if t.is_cuda:
-        out = torch.empty((2, L, n), dtype=t.dtype, device=t.device)
-        (KS_SHOUP32 if t.dtype == torch.int32 else KS_SHOUP)(
-            ptr(t), ptr(evk), ptr(evk_shoup), ptr(limb_map.contiguous()),
-            ptr(q.reshape(-1).contiguous()), ptr(out), beta, L, evk.shape[2], n)
-        return out
-    if t.device.type != "cpu":
-        raise ValueError(f"key_inner_prod_shoup: unsupported device {t.device}")
-    return key_inner_prod_shoup_plain(t, evk, evk_shoup, limb_map, q)
+    if not _check("key_inner_prod_shoup", t, (evk, evk_shoup), limb_map, q,
+                  (torch.int32, torch.int64)):
+        return key_inner_prod_shoup_plain(t, evk, evk_shoup, limb_map, q)
+    out = torch.empty((2, L, n), dtype=t.dtype, device=t.device)
+    (KS_SHOUP32 if t.dtype == torch.int32 else KS_SHOUP)(
+        ptr(t), ptr(evk), ptr(evk_shoup), ptr(limb_map.contiguous()),
+        ptr(q.reshape(-1).contiguous()), ptr(out), beta, L, evk.shape[2], n)
+    return out

@@ -235,3 +235,11 @@ def shoup32_of(w, q):
     from the 96-bit ratio floor(2^96/q) and corrects (w64.py:435-454); here
     w * 2^32 < 2^62 and int64 floor division is exact."""
     return i32_of_u32(torch.div(w.to(torch.int64) << 32, q, rounding_mode="floor"))
+
+
+def mul_shoup(a, w, ws, q):
+    """Canonical a*w mod q with w's Shoup word in the residues' word:
+    ``mul_mod_shoup32`` on int32 residues, ``mul_mod_shoup`` on int64."""
+    if a.dtype == torch.int32:
+        return mul_mod_shoup32(a, w, ws, q)
+    return mul_mod_shoup(a, w, ws, q)

@@ -179,13 +179,6 @@ def _rows(tab: torch.Tensor, t: DeviceNTTTables) -> torch.Tensor:
     return tab.index_select(0, t.limb_map)
 
 
-def _mul_shoup(a, w, ws, q):
-    """Canonical a*w mod q with the table word's Shoup companion."""
-    if a.dtype == torch.int32:
-        return ma.mul_mod_shoup32(a, w, ws, q)
-    return ma.mul_mod_shoup(a, w, ws, q)
-
-
 def forward_ntt_plain(x: torch.Tensor, t: DeviceNTTTables) -> torch.Tensor:
     n, L = t.n, t.num_limbs
     lead = x.shape[:-1]
@@ -198,7 +191,7 @@ def forward_ntt_plain(x: torch.Tensor, t: DeviceNTTTables) -> torch.Tensor:
         ws = roots_shoup[:, m:2 * m].reshape(L, m, 1)
         xr = x.reshape(lead + (m, 2, tt))
         a, b = xr[..., 0, :], xr[..., 1, :]
-        v = _mul_shoup(b, w, ws, qb)
+        v = ma.mul_shoup(b, w, ws, qb)
         x = torch.stack([ma.add_mod(a, v, qb), ma.sub_mod(a, v, qb)], dim=-2)
         x = x.reshape(lead + (n,))
         m <<= 1
@@ -219,15 +212,15 @@ def inverse_ntt_plain(x: torch.Tensor, t: DeviceNTTTables, scale=None,
         xr = x.reshape(lead + (h, 2, tt))
         a, b = xr[..., 0, :], xr[..., 1, :]
         u = ma.add_mod(a, b, qb)
-        v = _mul_shoup(ma.sub_mod(a, b, qb), w, ws, qb)
+        v = ma.mul_shoup(ma.sub_mod(a, b, qb), w, ws, qb)
         x = torch.stack([u, v], dim=-2).reshape(lead + (n,))
         tt <<= 1
         m = h
     inv_n = _rows(t.inv_degree, t).reshape(L, 1)
     inv_n_shoup = _rows(t.inv_degree_shoup, t).reshape(L, 1)
-    x = _mul_shoup(x, inv_n, inv_n_shoup, t.q)
+    x = ma.mul_shoup(x, inv_n, inv_n_shoup, t.q)
     if scale is not None:
-        x = _mul_shoup(x, scale.reshape(L, 1), scale_shoup.reshape(L, 1), t.q)
+        x = ma.mul_shoup(x, scale.reshape(L, 1), scale_shoup.reshape(L, 1), t.q)
     return x
 
 
@@ -236,9 +229,9 @@ def forward_ntt_sub_scale_plain(x, sub, t: DeviceNTTTables, scale, scale_shoup,
     L = t.num_limbs
     y = forward_ntt_plain(x, t)
     if pre is not None:
-        y = _mul_shoup(y, pre.reshape(L, 1), pre_shoup.reshape(L, 1), t.q)
+        y = ma.mul_shoup(y, pre.reshape(L, 1), pre_shoup.reshape(L, 1), t.q)
     d = ma.sub_mod(sub, y, t.q)
-    return _mul_shoup(d, scale.reshape(L, 1), scale_shoup.reshape(L, 1), t.q)
+    return ma.mul_shoup(d, scale.reshape(L, 1), scale_shoup.reshape(L, 1), t.q)
 
 
 # --------------------------------------------------------------------------

@@ -119,8 +119,11 @@ class KeySwitchTables:
     part_qhatinv: torch.Tensor
     part_qhatinv_shoup: torch.Tensor
     digits: tuple[DigitTables, ...]
-    # inner product over QlP: moduli (size_QlP, 1) and key rows (size_QlP,)
-    qlp_q: torch.Tensor
+    # the extended basis QlP = Ql ++ P: its moduli and their constants
+    # ((size_QlP, 1): q, the Barrett words K7 lands with, the fold rows K9
+    # and the q32 multiply use), and the key rows of the inner product
+    # (size_QlP,)
+    qlp_mod: ModulusVec
     qlp_key_rows: torch.Tensor
     # moddown: P -> Ql conversion and P^{-1} scaling
     p_hatinv: torch.Tensor         # (size_P, 1) [ (P/p_j)^{-1} ]_{p_j}
@@ -130,6 +133,9 @@ class KeySwitchTables:
     p_ntt: DeviceNTTTables
     big_pinv_mod_q: torch.Tensor   # (size_Ql, 1)
     big_pinv_mod_q_shoup: torch.Tensor
+    # keyswitch_ext / hoisting: [P]_{q_i} and its Shoup word, (size_Ql, 1)
+    big_p_mod_q: torch.Tensor
+    big_p_mod_q_shoup: torch.Tensor
 
 
 @dataclass(frozen=True)
@@ -232,17 +238,18 @@ class FheContext:
         p_to_q = BaseConverter(p_base, base_Ql)
         big_p = p_base.big_modulus
         big_pinv_mod_q = [numth.invert_mod(big_p % q, q) for q in base_Ql.values]
-        qlp = list(base_Ql.values) + list(p_base.values)
         part_qhatinv, part_qhatinv_shoup = _pair(part_qhatinv, base_Ql.values, dev, q32)
         p_hatinv, p_hatinv_shoup = _pair(p_base.q_hat_inv_mod_q, p_base.values, dev, q32)
         big_pinv, big_pinv_shoup = _pair(big_pinv_mod_q, base_Ql.values, dev, q32)
+        big_p_mod_q, big_p_mod_q_shoup = _pair([big_p % q for q in base_Ql.values],
+                                               base_Ql.values, dev, q32)
         return KeySwitchTables(
             alpha=size_P,
             beta=digits.beta,
             part_qhatinv=part_qhatinv,
             part_qhatinv_shoup=part_qhatinv_shoup,
             digits=tuple(digit_tables),
-            qlp_q=_col(qlp, dev, q32),
+            qlp_mod=ModulusVec.from_moduli(base_Ql.base + p_base.base, dev, q32),
             qlp_key_rows=torch.tensor(list(range(size_Ql)) + list(range(size_Q, size_Q + size_P)),
                                       dtype=torch.int64, device=dev),
             p_hatinv=p_hatinv,
@@ -252,6 +259,8 @@ class FheContext:
             p_ntt=self.key_ntt.slice_limbs([size_Q + j for j in range(size_P)]),
             big_pinv_mod_q=big_pinv,
             big_pinv_mod_q_shoup=big_pinv_shoup,
+            big_p_mod_q=big_p_mod_q,
+            big_p_mod_q_shoup=big_p_mod_q_shoup,
         )
 
     # -- chain helpers --------------------------------------------------

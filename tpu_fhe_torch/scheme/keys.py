@@ -1,16 +1,20 @@
 """Key generation, encryption, decryption (CKKS RLWE core).
 
-Port of ``tpu_fhe/scheme/keys.py`` for the secret, public and relin keys:
-ternary secret in NTT form at the key level; public key
+Port of ``tpu_fhe/scheme/keys.py`` for the secret, public, relin and Galois
+keys: ternary secret in NTT form at the key level; public key
 pk = (-(a s + e), a); hybrid key-switching keys with dnum digits where
-digit d's first component carries + P * s^2 on the digit's limbs.  The
-relin key carries Shoup companion words of every limb by default, so the
-keyswitch inner product takes the Shoup kernel (ops/ks.py); they are
-computed once here, with the plain torch ``shoup_of`` (or ``shoup32_of``
-on a q32 context) on the key's device.  On a q32 context every key,
-ciphertext and plaintext is int32, the counterpart of the reference's
-compact u32 storage (tpu_fhe/scheme/keys.py:165-170, :306, :392).
-Galois keys belong to a later slice.
+digit d's first component carries + P * target on the digit's limbs (the
+relin key's target is s^2).  Galois keys take the fused form: the key of
+sigma_g encrypts P * s under sigma_g^-1(s), so a rotation keyswitches the
+unrotated c1 and applies sigma_g to the output, and one modup serves many
+rotations (hoisting).  The relin key carries Shoup companion words of every
+limb by default, so its inner product takes the Shoup kernel (K8/K10);
+Galois keys carry none by default, because a rotation-key set dominates
+memory, and take K7/K9 (ops/ks.py).  The words are computed here, with
+the plain torch ``shoup_of`` (or ``shoup32_of`` on a q32 context) on the
+key's device.  On a q32 context every key, ciphertext and plaintext is
+int32, the counterpart of the reference's compact u32 storage
+(tpu_fhe/scheme/keys.py:165-170, :306, :392).
 
 All sampling draws from the secret key's ``torch.Generator``.
 """
@@ -22,6 +26,7 @@ from dataclasses import dataclass
 import torch
 
 from ..ops import modarith as mm
+from ..ops.galois import apply_galois_ntt, galois_elt_from_step
 from ..ops.ntt import forward_ntt
 from . import prng
 from .ciphertext import Ciphertext, Plaintext
@@ -41,6 +46,21 @@ class RelinKey:
 
     data: torch.Tensor  # (dnum, 2, size_QP, N)
     shoup: torch.Tensor | None = None
+
+
+@dataclass(frozen=True)
+class GaloisKey:
+    """Map from automorphism element to its switching key (fused form)."""
+
+    keys: dict[int, RelinKey]
+
+    def key_for_elt(self, elt: int) -> RelinKey:
+        try:
+            return self.keys[elt]
+        except KeyError:
+            raise ValueError(
+                f"no Galois key for automorphism element {elt}; generate it "
+                f"with SecretKey.galois_key([...]) for the required steps") from None
 
 
 def _generator(seed: int | torch.Generator, device: torch.device) -> torch.Generator:
@@ -83,9 +103,13 @@ class SecretKey:
     def public_key(self) -> PublicKey:
         return PublicKey(self._enc_zero_under(self.s_ntt))
 
-    def _kswitch_key(self, target_ntt: torch.Tensor, shoup: bool) -> RelinKey:
-        """Digit d = Enc_s(P * target * 1_{digit d})."""
+    def _kswitch_key(self, target_ntt: torch.Tensor, under_ntt: torch.Tensor | None = None,
+                     shoup: bool = False) -> RelinKey:
+        """Digit d = Enc_under(P * target * 1_{digit d}); `under` defaults
+        to s (Galois keys encrypt under the inverse-rotated secret)."""
         ctx = self.context
+        if under_ntt is None:
+            under_ntt = self.s_ntt
         kl = ctx.key_level
         size_P, size_Q = ctx.params.size_P, ctx.params.size_Q
         dnum = (size_Q + size_P - 1) // size_P
@@ -94,7 +118,7 @@ class SecretKey:
                                dtype=ctx.dtype, device=ctx.device)
         keys = []
         for d in range(dnum):
-            pk = self._enc_zero_under(self.s_ntt)
+            pk = self._enc_zero_under(under_ntt)
             sl = slice(d * size_P, min((d + 1) * size_P, size_Q))
             mod = kl.mod.rows(sl)
             chunk = mod.mul(target_ntt[sl], p_mod_q[sl])
@@ -114,7 +138,38 @@ class SecretKey:
         """The relinearization key; `shoup` (default on) attaches the Shoup
         companion words the inner-product kernel reads."""
         s2 = self.context.key_level.mod.mul(self.s_ntt, self.s_ntt)
-        return self._kswitch_key(s2, shoup)
+        return self._kswitch_key(s2, shoup=shoup)
+
+    def galois_key(self, steps: list[int], include_conj: bool = False,
+                   shoup: bool = False) -> GaloisKey:
+        """Switching keys for rotations by the given slot steps, one per
+        automorphism element (and conjugation with `include_conj`).
+        `shoup` attaches Shoup words, doubling each key's memory; off by
+        default, so the inner product takes K7/K9."""
+        n = self.context.n
+        elts = [galois_elt_from_step(s, n) for s in steps]
+        if include_conj:
+            elts.append(2 * n - 1)
+        return GaloisKey({elt: self._galois_key_for_elt(elt, shoup)
+                          for elt in dict.fromkeys(elts)})
+
+    def galois_key_power_of_2(self, include_conj: bool = False,
+                              shoup: bool = False) -> GaloisKey:
+        """The O(log N) key set: rotations by +-2^i slots for every
+        2^i < N/2.  Any other step rotates through its NAF decomposition
+        (evaluator.rotate)."""
+        steps: list[int] = []
+        p = 1
+        while p < self.context.n // 2:
+            steps.extend([p, -p])
+            p <<= 1
+        return self.galois_key(steps, include_conj=include_conj, shoup=shoup)
+
+    def _galois_key_for_elt(self, elt: int, shoup: bool = False) -> RelinKey:
+        """Fused-form key Enc_{sigma_elt^-1(s)}(P * s)."""
+        n = self.context.n
+        s_inv_rot = apply_galois_ntt(self.s_ntt, pow(elt, -1, 2 * n), n)
+        return self._kswitch_key(self.s_ntt, under_ntt=s_inv_rot, shoup=shoup)
 
     # -- encryption / decryption ------------------------------------------
     def encrypt_symmetric(self, pt: Plaintext) -> Ciphertext:

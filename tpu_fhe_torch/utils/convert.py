@@ -19,7 +19,7 @@ import torch
 from ..ops.modarith import u32_tensor, u64_tensor as to_tensor
 from ..scheme.ciphertext import Ciphertext, Plaintext
 from ..scheme.context import FheContext
-from ..scheme.keys import RelinKey, SecretKey
+from ..scheme.keys import GaloisKey, RelinKey, SecretKey
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
@@ -50,12 +50,23 @@ def secret_key_from_np(ctx: FheContext, s_ntt: np.ndarray,
 def relin_key_from_np(ctx: FheContext, data: np.ndarray,
                       shoup: np.ndarray | None = None) -> RelinKey:
     """A switching key and its Shoup words (floor(data * 2^64 / q), or
-    floor(data * 2^32 / q) on a q32 context)."""
+    floor(data * 2^32 / q) on a q32 context), or None for a key without."""
     return RelinKey(word_tensor(ctx, data), None if shoup is None else word_tensor(ctx, shoup))
 
 
 def relin_key_to_np(key: RelinKey) -> tuple[np.ndarray, np.ndarray | None]:
     return to_numpy(key.data), None if key.shoup is None else to_numpy(key.shoup)
+
+
+def galois_key_from_np(ctx: FheContext, keys: dict) -> GaloisKey:
+    """A Galois key set from {automorphism element: (data, shoup or None)}."""
+    return GaloisKey({int(elt): relin_key_from_np(ctx, data, shoup)
+                      for elt, (data, shoup) in keys.items()})
+
+
+def galois_key_to_np(gk: GaloisKey) -> dict:
+    """{automorphism element: (data, shoup or None)} as numpy."""
+    return {elt: relin_key_to_np(key) for elt, key in gk.keys.items()}
 
 
 def ciphertext_from_np(ctx: FheContext, data: np.ndarray, chain_index: int,
