@@ -20,8 +20,12 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     the card, at the plan's full-width keyswitch shapes, integer-exact,
     with its device time (CUDA events around a CUDA-graph replay of 20
     launches), the plain version's time and the least time the card could
-    take; on the q32 plan also K4 and K5 against K1 and K2 on the same
-    30-bit moduli;
+    take (bytes at 3.35 TB/s against IMADs at 64 per SM and clock plus
+    int8 tensor-core operations at 1,979 TOP/s; base conversion counted
+    in its digit-plane form); on the q32 plan also K4 and K5 against K1
+    and K2 on the same 30-bit moduli, K4 at 2^16 and 2^17 (59 limbs), and
+    torch._int_mm on bconv32's int8 operands as a yardstick of its
+    product part;
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
@@ -73,12 +77,23 @@ ROT_STEPS = [1, 2, 4, -1]                # Galois keys (and conjugation)
 HOIST_STEPS = (0, 1, 2, 4)
 TOL = 1e-6
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
-# 32-bit integer multiply-add rate: Hopper issues half as many IMAD as
-# FFMA per SM and clock, so half of the 67 TFLOP/s float32 peak.
-INT32_OPS_PER_S = 67e12 / 2
+# 32-bit integer multiply-add rate: Hopper issues 64 IMAD per SM and clock
+# (against 128 FFMA; NVIDIA's arithmetic-instruction throughput table for
+# compute capability 9.0): 132 SMs x 64 x 1.98 GHz.
+INT32_OPS_PER_S = 132 * 64 * 1.98e9
+INT8_TC_OPS_PER_S = 1979e12              # int8 tensor cores, dense
 IMAD_PER_MUL64 = 4                       # one 64x64 product (lo or hi) in 32-bit IMADs
 IMAD_PER_MUL32 = 1                       # one 32x32 product (lo or hi)
 IMAD_PER_WIDE32 = 2                      # one 32x32 -> 64 product (IMAD.WIDE)
+# Base conversion's bound is that of its cheapest known form, the balanced
+# int8 digit planes of tpu_fhe/ops/bconv_mxu*.py: the int8 products of every
+# table plane with every input plane (the nonzero blocks of the diagonal
+# matrix), then per output a reassembly of the diagonals and one landing,
+# in IMADs: q32 (4 planes, 7 diagonals) six shifted 64-bit adds (12), the
+# 96-bit combine (3) and reduce96's 8 products; u64 (8 planes, 15
+# diagonals) four 64-bit groups of shifted adds (32), the 128-bit combine
+# (12), barrett128's six 64-bit products (24) and its carries (2).
+BCONV_FORMS = {4: (4, 23), 8: (8, 70)}   # word: digit planes, IMADs per output
 
 
 def log(*a):
@@ -120,10 +135,20 @@ def cuda_ms(fn, reps: int, samples: int = 5, graph: bool = False) -> float:
     return float(np.median(out))
 
 
-def bound_ms(nbytes: float, imads: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, imads: float, int8_ops: float = 0.0) -> tuple[float, str]:
+    """The larger of the bytes' time and the operations' time (IMADs plus
+    int8 tensor-core operations, each at its own rate)."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = imads / INT32_OPS_PER_S * 1e3
+    t_ops = (imads / INT32_OPS_PER_S + int8_ops / INT8_TC_OPS_PER_S) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def bconv_cost(word: int, batch: int, k: int, m: int) -> dict:
+    """Bytes, IMADs and int8 operations of one base conversion of `batch`
+    rows, k -> m limbs of N coefficients, in its digit-plane form."""
+    planes, epi = BCONV_FORMS[word]
+    return dict(nbytes=word * N * batch * (k + m), imads=batch * m * N * epi,
+                int8_ops=2 * batch * (planes * m) * (planes * k) * N)
 
 
 def main() -> int:
@@ -173,7 +198,8 @@ class Checker:
         self.kernels = {k.name: k for k in kernels}
         self.report = {name: {"checks": []} for name in self.kernels}
 
-    def check(self, name, shape, kernel_fn, plain_fn, nbytes, imads, headline=False):
+    def check(self, name, shape, kernel_fn, plain_fn, nbytes, imads, int8_ops=0.0,
+              headline=False):
         import torch
 
         got, want = kernel_fn(), plain_fn()
@@ -187,7 +213,7 @@ class Checker:
         ms = cuda_ms(kernel_fn, reps=20, graph=True)
         called = cuda_ms(kernel_fn, reps=20)
         plain = cuda_ms(plain_fn, reps=1, samples=3)
-        bms, by = bound_ms(nbytes, imads)
+        bms, by = bound_ms(nbytes, imads, int8_ops)
         log(f"[kernel] {name} {shape}: max|diff|=0  {ms:.4f} ms (graph replay; "
             f"{called:.4f} ms called from Python)  plain {plain:.3f} ms  "
             f"bound {bms:.4f} ms ({by})")
@@ -236,14 +262,36 @@ def residue_maker(dev, n: int, seed: int):
     return residues
 
 
-def ntt_cost(word: int, rows: int, limbs: int, extra_muls: int = 0, tables: int = 2):
+def ntt_cost(word: int, rows: int, limbs: int, extra_muls: int = 0, tables: int = 2,
+             n: int = N):
     """Bytes (data in and out, `tables` twiddle planes per limb) and IMADs
-    (log2 N butterfly stages of one Shoup multiply, 3 products each, plus
-    `extra_muls` Shoup multiplies per element) of a transform."""
+    (log2 n butterfly stages of one Shoup multiply, 3 products each, plus
+    `extra_muls` Shoup multiplies per element) of a transform of size n."""
     per_mul = IMAD_PER_MUL64 if word == 8 else IMAD_PER_MUL32
-    nbytes = word * N * (2 * rows + tables * limbs)
-    imads = (rows * (N // 2) * (N.bit_length() - 1) + extra_muls * rows * N) * 3 * per_mul
+    nbytes = word * n * (2 * rows + tables * limbs)
+    imads = (rows * (n // 2) * (n.bit_length() - 1) + extra_muls * rows * n) * 3 * per_mul
     return nbytes, imads
+
+
+def int_mm_yardstick(k: int, m: int, card: str) -> None:
+    """Time torch._int_mm on the operands of bconv32's int8 product at
+    k -> m: (7 m_pad, 4 k) @ (4 k, N), m_pad = m rounded up to 8.  Only a
+    yardstick of the product part (not the same function: no digit
+    extraction, reassembly or landing); the port never calls it."""
+    import torch
+
+    m_pad = -(-m // 8) * 8
+    g = torch.Generator(device="cuda").manual_seed(3)
+    a = torch.randint(-128, 128, (7 * m_pad, 4 * k), generator=g, device="cuda",
+                      dtype=torch.int8)
+    b = torch.randint(-128, 128, (4 * k, N), generator=g, device="cuda", dtype=torch.int8)
+    try:
+        ms = cuda_ms(lambda: torch._int_mm(a, b), reps=20)
+    except RuntimeError as e:
+        log(f"[kernel] torch._int_mm ({7 * m_pad}, {4 * k}) @ ({4 * k}, 2^15): refused ({e})")
+        return
+    log(f"[kernel] torch._int_mm ({7 * m_pad}, {4 * k}) @ ({4 * k}, 2^15) int8 -> int32, "
+        f"the product part of bconv32 {k} -> {m} alone: {ms:.4f} ms on {card}")
 
 
 # --------------------------------------------------------------------------
@@ -308,13 +356,12 @@ def u64_slice(card: str) -> list:
     btab = (dig.qhat_mod_p, dig.comp_mod.q, dig.comp_mod.ratio_lo, dig.comp_mod.ratio_hi)
     k_in, m_out = dig.end - dig.start, dig.comp_mod.q.shape[0]
     ck.check("bconv", "15 -> 30, (15, 2^15)", lambda: bconv.bconv_matmul(s, *btab),
-             lambda: bconv.bconv_matmul_plain(s, *btab), 8 * N * (k_in + m_out),
-             2 * k_in * m_out * N * IMAD_PER_MUL64, headline=True)
+             lambda: bconv.bconv_matmul_plain(s, *btab), **bconv_cost(8, 1, k_in, m_out),
+             headline=True)
     s2 = residues(kst.p_mod.q, 2)
     mtab = (kst.p_hat_mod_q, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi)
     ck.check("bconv", "15 -> 30, (2, 15, 2^15)", lambda: bconv.bconv_matmul(s2, *mtab),
-             lambda: bconv.bconv_matmul_plain(s2, *mtab), 8 * N * 2 * (P + L),
-             2 * 2 * P * L * N * IMAD_PER_MUL64)
+             lambda: bconv.bconv_matmul_plain(s2, *mtab), **bconv_cost(8, 2, P, L))
     beta = kst.beta
     qlp = kst.qlp_mod
     t = residues(qlp.q, beta)
@@ -423,16 +470,17 @@ def q32_slice(card: str) -> list:
     for dt in kst.digits:
         k_in, m_out = dt.end - dt.start, dt.comp_mod.q.shape[0]
         s = residues(level.mod.q[dt.start:dt.end])
-        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.fold)
+        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.fold, dt.qhat_mod_p_diag)
         ck.check("bconv32", f"{k_in} -> {m_out}, ({k_in}, 2^15)",
                  lambda: bconv.bconv_matmul32(s, *tab),
-                 lambda: bconv.bconv_matmul32_plain(s, *tab), 4 * N * (k_in + m_out),
-                 k_in * m_out * N * IMAD_PER_WIDE32, headline=k_in == 30)
+                 lambda: bconv.bconv_matmul32_plain(s, *tab), **bconv_cost(4, 1, k_in, m_out),
+                 headline=k_in == 30)
+        if k_in == 30:
+            int_mm_yardstick(k_in, m_out, card)
     s2 = residues(kst.p_mod.q, 2)
-    tab = (kst.p_hat_mod_q, level.mod.q, level.mod.fold)
+    tab = (kst.p_hat_mod_q, level.mod.q, level.mod.fold, kst.p_hat_mod_q_diag)
     ck.check("bconv32", "30 -> 59, (2, 30, 2^15)", lambda: bconv.bconv_matmul32(s2, *tab),
-             lambda: bconv.bconv_matmul32_plain(s2, *tab), 4 * N * 2 * (P + L),
-             2 * P * L * N * IMAD_PER_WIDE32)
+             lambda: bconv.bconv_matmul32_plain(s2, *tab), **bconv_cost(4, 2, P, L))
     qlp, rows = kst.qlp_mod, kst.qlp_key_rows
     t = residues(qlp.q, kst.beta)
     kq = ctx.key_level.mod
@@ -461,6 +509,17 @@ def q32_slice(card: str) -> list:
     log("[kernel] ntt_fwd32 == ntt_fwd and ntt_inv32 == ntt_inv on the 59 30-bit moduli "
         "of (59, 2^15), bit for bit")
     del x, xp, sub, xs, s, s2, t, evk, evk_s, wide, x64
+    # K4 at the larger rings (clusters of 4 and 8 blocks), 59 limbs of
+    # 30-bit primes each
+    for log_n in (16, 17):
+        n = 1 << log_n
+        tabs = ntt.build_device_ntt_tables(
+            [make_ntt_tables(log_n, m.value) for m in CoeffModulus.create(n, [30] * L)],
+            ctx.device, q32=True)
+        xn = residue_maker(ctx.device, n, 2040 + log_n)(tabs.q)
+        ck.check("ntt_fwd32", f"({L}, 2^{log_n})", lambda: ntt.forward_ntt(xn, tabs),
+                 lambda: ntt.forward_ntt_plain(xn, tabs), *ntt_cost(4, L, L, n=n))
+        del tabs, xn
 
     # -- 4. the q32 requests ------------------------------------------------
     launches, products, rlk, sk = run_requests("q32", ctx, ck, SCALE32,

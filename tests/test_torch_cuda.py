@@ -231,12 +231,12 @@ def test_q32_bconv_and_inner_product_equal_plain(ctx32):
     kst = level.ks
     for dt in kst.digits:
         s = _res32(ctx32, level.mod.q[dt.start:dt.end], 2)
-        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.fold)
+        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.fold, dt.qhat_mod_p_diag)
         assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
     s = _res32(ctx32, kst.p_mod.q, 2, seed=3)
-    tab = (kst.p_hat_mod_q, level.mod.q, level.mod.fold)
+    tab = (kst.p_hat_mod_q, level.mod.q, level.mod.fold, kst.p_hat_mod_q_diag)
     assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
-    # 40 inputs: more than the 32 the kernel keeps in registers
+    # 40 inputs: five K steps of the kernel's product, the last one ragged
     primes = [m.value for m in CoeffModulus.create(ctx32.n, [30] * 48)]
     q_in, q_out = (torch.tensor(v, dtype=torch.int32, device=ctx32.device).reshape(-1, 1)
                    for v in (primes[:40], primes[40:]))
@@ -245,7 +245,7 @@ def test_q32_bconv_and_inner_product_equal_plain(ctx32):
     table = (torch.randint(0, 1 << 30, (8, 40), generator=g, dtype=torch.int64,
                            device=ctx32.device) % q_out.to(torch.int64)).to(torch.int32)
     fold = torch.from_numpy(mm.q32_mul_consts(primes[40:]).astype(np.int64).reshape(5, 8, 1))
-    tab = (table, q_out, fold.to(ctx32.device))
+    tab = (table, q_out, fold.to(ctx32.device), bconv.digit_matrix32(table))
     assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
     kq = ctx32.key_level.mod
     evk = _res32(ctx32, kq.q, 2, 2)
@@ -294,3 +294,106 @@ def test_q32_relinearize_rescale_composite_equal_cpu(ctx32):
         relin = ev.relinearize(c, ct, relin_key_from_np(c, data, shoup))
         outs.append(to_numpy(ev.rescale_composite(c, relin).data))
     np.testing.assert_array_equal(outs[0], outs[1])
+
+
+# -- K13 and K4 as redesigned for the card ------------------------------------
+
+_PRIMES30 = {}
+
+
+class _Dev:
+    """The two fields _res reads from a context."""
+
+    def __init__(self, device, n):
+        self.device, self.n = device, n
+
+
+def _primes30(n: int, count: int) -> list[int]:
+    """`count` distinct 30-bit NTT primes for ring size n (at most 128)."""
+    if (n, count) not in _PRIMES30:
+        _PRIMES30[n, count] = [m.value for m in CoeffModulus.create(n, [30] * count)]
+    return _PRIMES30[n, count]
+
+
+@pytest.mark.parametrize("m", [1, 7, 59, 60, 89])
+@pytest.mark.parametrize("k", [1, 29, 30, 40, 90])
+def test_q32_bconv_tensor_core_equals_plain(gpu, k, m):
+    """K13's int8 tensor-core kernel against its plain version: every k
+    (ragged K steps, up to 12 of them) and m (odd m leaves half an M tile),
+    batch 2, at N = 2^10 and 2^15; moduli of 30 bits."""
+    primes = _primes30(1 << 15, 128)
+    q_in = [primes[(m + i) % 128] for i in range(k)]
+    q_out = primes[:m]
+    g = torch.Generator(device=gpu).manual_seed(100 * k + m)
+    qo = torch.tensor(q_out, dtype=torch.int64, device=gpu).reshape(-1, 1)
+    table = (torch.randint(0, 1 << 30, (m, k), generator=g, dtype=torch.int64, device=gpu)
+             % qo).to(torch.int32)
+    fold = torch.from_numpy(mm.q32_mul_consts(q_out).astype(np.int64).reshape(5, m, 1))
+    tab = (table, qo.to(torch.int32), fold.to(gpu), bconv.digit_matrix32(table))
+    qi = torch.tensor(q_in, dtype=torch.int64, device=gpu).reshape(-1, 1)
+    for n in (1 << 10, 1 << 15):
+        s = (torch.randint(0, 1 << 62, (2, k, n), generator=g, dtype=torch.int64, device=gpu)
+             % qi).to(torch.int32)
+        assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
+
+
+def test_q32_bconv_long_sum_and_ragged_n(gpu):
+    """More than one launch's 512 inputs (the second adds mod p in its
+    landing), and N not a multiple of the 64-coefficient tile."""
+    primes = _primes30(1 << 10, 64)
+    k, m, n = 600, 5, 1000
+    q_in = [primes[i % 64] for i in range(k)]
+    g = torch.Generator(device=gpu).manual_seed(7)
+    qo = torch.tensor(primes[:m], dtype=torch.int64, device=gpu).reshape(-1, 1)
+    table = (torch.randint(0, 1 << 30, (m, k), generator=g, dtype=torch.int64, device=gpu)
+             % qo).to(torch.int32)
+    fold = torch.from_numpy(mm.q32_mul_consts(primes[:m]).astype(np.int64).reshape(5, m, 1))
+    tab = (table, qo.to(torch.int32), fold.to(gpu), bconv.digit_matrix32(table))
+    qi = torch.tensor(q_in, dtype=torch.int64, device=gpu).reshape(-1, 1)
+    s = (torch.randint(0, 1 << 62, (k, n), generator=g, dtype=torch.int64, device=gpu)
+         % qi).to(torch.int32)
+    assert torch.equal(bconv.bconv_matmul32(s, *tab), bconv.bconv_matmul32_plain(s, *tab))
+
+
+@pytest.mark.parametrize("log_n", [10, 13, 14, 15, 16, 17])
+def test_q32_ntt_fwd_cluster_equals_plain_and_u64(gpu, log_n):
+    """K4 (one launch; clusters of 1, 1, 2, 4, 4 and 8 blocks) against its
+    plain version and against K1 on the same 30-bit moduli, through the
+    full tables, a level slice and a digit complement (a non-identity
+    limb_map), with 2 x L rows."""
+    n = 1 << log_n
+    qs = _primes30(n, 6)
+    key = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], gpu, q32=True)
+    wide = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], gpu, q32=False)
+    for idx in (list(range(6)), [0, 1, 2, 3], [4, 1, 3]):
+        view, view64 = key.slice_limbs(idx), wide.slice_limbs(idx)
+        x = _res32(_Dev(gpu, n), view.q, 2, seed=log_n)
+        got = ntt.forward_ntt(x, view)
+        assert torch.equal(got, ntt.forward_ntt_plain(x, view))
+        assert torch.equal(got.to(torch.int64), ntt.forward_ntt(x.to(torch.int64), view64))
+
+
+def test_q32_redesigned_wrappers_refuse_bad_input(gpu):
+    primes = _primes30(1 << 10, 16)
+    g = torch.Generator(device=gpu).manual_seed(1)
+    qo = torch.tensor(primes[:3], dtype=torch.int32, device=gpu).reshape(-1, 1)
+    table = torch.randint(0, 1 << 29, (3, 8), generator=g, dtype=torch.int32, device=gpu)
+    fold = torch.from_numpy(mm.q32_mul_consts(primes[:3]).astype(np.int64).reshape(5, 3, 1))
+    fold = fold.to(gpu)
+    s = torch.randint(0, 1 << 29, (8, 1024), generator=g, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="digit matrix"):        # no digit matrix
+        bconv.bconv_matmul32(s, table, qo, fold)
+    with pytest.raises(ValueError, match="digit matrix"):        # a 40-input table's
+        bconv.bconv_matmul32(s, table, qo, fold, bconv.digit_matrix32(table.repeat(1, 5)))
+    with pytest.raises(ValueError, match="digit matrix"):        # on the CPU
+        bconv.bconv_matmul32(s, table, qo, fold, bconv.digit_matrix32(table).cpu())
+    with pytest.raises(ValueError):                              # u64 residues
+        bconv.bconv_matmul32(s.to(torch.int64), table, qo, fold, bconv.digit_matrix32(table))
+    key = build_device_ntt_tables([make_ntt_tables(10, q) for q in primes[:2]], gpu, q32=True)
+    x = _res32(_Dev(gpu, 1024), key.q, 2)
+    with pytest.raises(TypeError):                               # int64 data, int32 tables
+        ntt.forward_ntt(x.to(torch.int64), key)
+    with pytest.raises(ValueError, match="contiguous"):
+        ntt.forward_ntt(x.transpose(0, 1).contiguous().transpose(0, 1), key)
+    with pytest.raises(ValueError):                              # N of other tables
+        ntt.forward_ntt(x[..., :512].contiguous(), key)

@@ -246,21 +246,25 @@ def test_inner_product_plain_k10_matches_pallas(case):
 @pytest.mark.parametrize("which", ["ragged digit", "moddown"])
 def test_bconv_plain_k13_matches_pallas(which):
     """K13 on the ragged digit's modup conversion (2 -> 8 limbs) and on
-    moddown's P -> Ql conversion (4 -> 6 limbs, batch 2)."""
+    moddown's P -> Ql conversion (4 -> 6 limbs, batch 2), by the plain
+    version and by the kernel's digit-plane arithmetic from the digit
+    matrix the context keeps beside the table."""
     _, tctx = contexts(N)
     level = tctx.level(1)
     kst = level.ks
     rng = np.random.default_rng(13)
     if which == "moddown":
         s = uniform(rng, to_numpy(kst.p_mod.q).reshape(-1), (2,))
-        table, out = kst.p_hat_mod_q, level.mod
+        table, diag, out = kst.p_hat_mod_q, kst.p_hat_mod_q_diag, level.mod
     else:
         dt = kst.digits[1]
         s = uniform(rng, level.base.values[dt.start:dt.end], ())
-        table, out = dt.qhat_mod_p, dt.comp_mod
+        table, diag, out = dt.qhat_mod_p, dt.qhat_mod_p_diag, dt.comp_mod
     ref = bconv_matmul_mxu_pallas32(W64.from_np(s), to_numpy(table).astype(np.uint64),
                                     to_numpy(out.q).astype(np.uint64))
     got = bconv.bconv_matmul32(word_tensor(tctx, s), table, out.q, out.fold)
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(ref.lo))
+    got = bconv.bconv_matmul32_digits_plain(word_tensor(tctx, s), table, out.q, out.fold, diag)
     np.testing.assert_array_equal(to_numpy(got), np.asarray(ref.lo))
 
 

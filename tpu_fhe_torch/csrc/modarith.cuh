@@ -61,14 +61,20 @@ __device__ __forceinline__ u64 barrett128(u64 hi, u64 lo, u64 q, u64 r0, u64 r1)
 // tpu_fhe/ops/u32pair.py barrett_reduce96_32.  fold holds rows (5, m) of
 // per-modulus constants (modarith.q32_mul_consts): floor(2^32/q), 2^32 mod q
 // and its Shoup32 word, 2^64 mod q and its Shoup32 word; j is the modulus.
-__device__ __forceinline__ u32 reduce96(u64 lo, u32 w2, u32 q, const u64 *fold, int j, int m) {
+// The same with the five constants of q given as words (f[r] = fold[r, j]).
+__device__ __forceinline__ u32 reduce96(u64 lo, u32 w2, u32 q, u32 f0, u32 f1, u32 f1s, u32 f2,
+                                        u32 f2s) {
   const u32 w0 = static_cast<u32>(lo), w1 = static_cast<u32>(lo >> 32);
-  const u32 s0 = csub(w0 - __umulhi(w0, static_cast<u32>(fold[j])) * q, q);
-  const u32 s1 = csub(
-      shoup_lazy(w1, static_cast<u32>(fold[m + j]), static_cast<u32>(fold[2 * m + j]), q), q);
-  const u32 s2 =
-      shoup_lazy(w2, static_cast<u32>(fold[3 * m + j]), static_cast<u32>(fold[4 * m + j]), q);
+  const u32 s0 = csub(w0 - __umulhi(w0, f0) * q, q);
+  const u32 s1 = csub(shoup_lazy(w1, f1, f1s, q), q);
+  const u32 s2 = shoup_lazy(w2, f2, f2s, q);
   return csub(csub(s0 + s1 + s2, 2 * q), q);   // s0 + s1 + s2 < 4q
+}
+
+__device__ __forceinline__ u32 reduce96(u64 lo, u32 w2, u32 q, const u64 *fold, int j, int m) {
+  return reduce96(lo, w2, q, static_cast<u32>(fold[j]), static_cast<u32>(fold[m + j]),
+                  static_cast<u32>(fold[2 * m + j]), static_cast<u32>(fold[3 * m + j]),
+                  static_cast<u32>(fold[4 * m + j]));
 }
 
 }  // namespace

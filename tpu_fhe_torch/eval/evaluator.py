@@ -104,11 +104,12 @@ def multiply_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
 # hybrid key switching (the hot path)
 # --------------------------------------------------------------------------
 
-def _bconv(scaled: torch.Tensor, table: torch.Tensor, out: ModulusVec) -> torch.Tensor:
-    """Base conversion into the moduli `out`: K13's form on a q32 context,
-    K11's otherwise."""
+def _bconv(scaled: torch.Tensor, table: torch.Tensor, diag: torch.Tensor | None,
+           out: ModulusVec) -> torch.Tensor:
+    """Base conversion into the moduli `out`: K13's form (with the table's
+    digit matrix `diag`) on a q32 context, K11's otherwise."""
     if out.fold is not None:
-        return bconv_matmul32(scaled, table, out.q, out.fold)
+        return bconv_matmul32(scaled, table, out.q, out.fold, diag)
     return bconv_matmul(scaled, table, out.q, out.ratio_lo, out.ratio_hi)
 
 
@@ -128,7 +129,7 @@ def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor) -> torch.Tenso
     scaled = inverse_ntt_scaled(c2, level.ntt, ks.part_qhatinv, ks.part_qhatinv_shoup)
     digits = []
     for dt in ks.digits:
-        conv = _bconv(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.comp_mod)
+        conv = _bconv(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.qhat_mod_p_diag, dt.comp_mod)
         conv_ntt = forward_ntt(conv, dt.comp_ntt)
         digits.append(torch.cat(
             [conv_ntt[: dt.start], c2[dt.start:dt.end], conv_ntt[dt.start:]]))
@@ -157,7 +158,7 @@ def moddown_from_ntt(ctx: FheContext, level: ContextLevel, cx: torch.Tensor) -> 
     size_Ql = level.size
     scaled = inverse_ntt_scaled(cx[..., size_Ql:, :].contiguous(), ks.p_ntt,
                                 ks.p_hatinv, ks.p_hatinv_shoup)
-    delta = _bconv(scaled, ks.p_hat_mod_q, level.mod)
+    delta = _bconv(scaled, ks.p_hat_mod_q, ks.p_hat_mod_q_diag, level.mod)
     # (cx - NTT(delta)) * P^{-1}, fused into the forward transform
     return forward_ntt_sub_scale(delta, cx[..., :size_Ql, :].contiguous(), level.ntt,
                                  ks.big_pinv_mod_q, ks.big_pinv_mod_q_shoup)

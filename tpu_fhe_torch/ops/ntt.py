@@ -2,9 +2,11 @@
 
 Port of ``tpu_fhe/ops/ntt.py``.  Each transform has a plain torch version
 (the stage loop of the JAX package's XLA path, canonical butterflies) and a
-CUDA kernel (``csrc/ntt.cu``, Harvey-lazy butterflies, two-phase N1 x N2
-split).  The wrappers take the plain version for CPU tensors only; for a
-CUDA tensor they launch the kernel or raise.
+CUDA kernel (``csrc/ntt.cu``, Harvey-lazy butterflies): the q32 forward
+transform (K4) in one launch per limb, held in the shared memory of a
+thread-block cluster, the others in the two-phase N1 x N2 split.  The
+wrappers take the plain version for CPU tensors only; for a CUDA tensor
+they launch the kernel or raise.
 
 Two word sizes, chosen by the tables as the reference chooses its plan
 (``tpu_fhe/ops/ntt.py:206-211``): int64 tables and residues on the u64 plan
@@ -50,7 +52,7 @@ NTT_INV32 = CudaKernel(
     "ntt_inv32", "ntt.cu", "tfhe_ntt_inv32", [PTR] * 10 + [INT] * 3,
     "tpu_fhe/ops/ntt_pallas.py:823 _inv_kernel32 (K5)")
 
-MIN_LOG_N, MAX_LOG_N = 10, 17   # ring sizes the kernels' N1 x N2 split takes
+MIN_LOG_N, MAX_LOG_N = 10, 17   # ring sizes the kernels take
 
 
 @dataclass(frozen=True)

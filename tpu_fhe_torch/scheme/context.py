@@ -28,6 +28,7 @@ from ..core.ntt_tables import make_ntt_tables
 from ..core.params import EncryptionParameters, SchemeType
 from ..core.rns import BaseConverter, KeySwitchDigits, RNSBase
 from ..ops import modarith as mm
+from ..ops.bconv import digit_matrix32
 from ..ops.modarith import u32_tensor, u64_tensor
 from ..ops.ntt import DeviceNTTTables, build_device_ntt_tables
 
@@ -105,6 +106,9 @@ class DigitTables:
     start: int                    # first Ql limb index of this digit
     end: int                      # one past last
     qhat_mod_p: torch.Tensor      # (comp_size, digit_size)
+    # on a q32 context the table's digit matrix for K13's kernel
+    # (ops/bconv.py digit_matrix32); None on the u64 plan
+    qhat_mod_p_diag: torch.Tensor | None
     comp_mod: ModulusVec          # complement base (Ql minus digit) + P
     comp_ntt: DeviceNTTTables     # twiddles for the complement limbs
 
@@ -129,6 +133,7 @@ class KeySwitchTables:
     p_hatinv: torch.Tensor         # (size_P, 1) [ (P/p_j)^{-1} ]_{p_j}
     p_hatinv_shoup: torch.Tensor
     p_hat_mod_q: torch.Tensor      # (size_Ql, size_P)
+    p_hat_mod_q_diag: torch.Tensor | None   # its digit matrix (q32 only)
     p_mod: ModulusVec
     p_ntt: DeviceNTTTables
     big_pinv_mod_q: torch.Tensor   # (size_Ql, 1)
@@ -218,6 +223,9 @@ class FheContext:
                 part_qhatinv[i] = b.q_hat_inv_mod_q[j]
         table = u32_tensor if q32 else u64_tensor
 
+        def diag(t: torch.Tensor) -> torch.Tensor | None:
+            return digit_matrix32(t) if q32 else None
+
         digit_tables = []
         for d in range(digits.beta):
             rng = digits.digit_indices(d)
@@ -226,11 +234,12 @@ class FheContext:
             comp_key_idx = [i for i in range(size_Ql) if i not in rng] + [
                 size_Q + j for j in range(size_P)
             ]
+            qhat_mod_p = table(np.array(digits.converters[d].q_hat_mod_p, dtype=np.uint64), dev)
             digit_tables.append(DigitTables(
                 start=rng.start,
                 end=rng.stop,
-                qhat_mod_p=table(np.array(digits.converters[d].q_hat_mod_p, dtype=np.uint64),
-                                 dev),
+                qhat_mod_p=qhat_mod_p,
+                qhat_mod_p_diag=diag(qhat_mod_p),
                 comp_mod=ModulusVec.from_moduli(digits.complement_bases[d].base, dev, q32),
                 comp_ntt=self.key_ntt.slice_limbs(comp_key_idx),
             ))
@@ -243,6 +252,7 @@ class FheContext:
         big_pinv, big_pinv_shoup = _pair(big_pinv_mod_q, base_Ql.values, dev, q32)
         big_p_mod_q, big_p_mod_q_shoup = _pair([big_p % q for q in base_Ql.values],
                                                base_Ql.values, dev, q32)
+        p_hat_mod_q = table(np.array(p_to_q.q_hat_mod_p, dtype=np.uint64), dev)
         return KeySwitchTables(
             alpha=size_P,
             beta=digits.beta,
@@ -254,7 +264,8 @@ class FheContext:
                                       dtype=torch.int64, device=dev),
             p_hatinv=p_hatinv,
             p_hatinv_shoup=p_hatinv_shoup,
-            p_hat_mod_q=table(np.array(p_to_q.q_hat_mod_p, dtype=np.uint64), dev),
+            p_hat_mod_q=p_hat_mod_q,
+            p_hat_mod_q_diag=diag(p_hat_mod_q),
             p_mod=ModulusVec.from_moduli(p_base.base, dev, q32),
             p_ntt=self.key_ntt.slice_limbs([size_Q + j for j in range(size_P)]),
             big_pinv_mod_q=big_pinv,
