@@ -22,20 +22,26 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     launches), the plain version's time and the least time the card could
     take (bytes at 3.35 TB/s against IMADs at 64 per SM and clock plus
     int8 tensor-core operations at 1,979 TOP/s; base conversion counted
-    in its digit-plane form); on the q32 plan also K4 and K5 against K1
-    and K2 on the same 30-bit moduli, K4 at 2^16 and 2^17 (59 limbs), and
-    torch._int_mm on bconv32's int8 operands as a yardstick of its
+    in its digit-plane form); on the u64 plan also K1 at 2^16 and 2^17
+    (30 limbs of 50/60 bits), and a profile of one K1 call at (30, 2^15)
+    that must see one device kernel, fwd_cluster (on the q32 plan one K5
+    call at (59, 2^15), inv_cluster); on the q32 plan also K4 and K5 against K1
+    and K2 on the same 30-bit moduli, K4 and K5 (scaled) at 2^16 and 2^17
+    (59 limbs of 30 bits: the ring sizes where the cluster shape changes),
+    and torch._int_mm on bconv32's int8 operands as a yardstick of its
     product part;
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
     the cleartext product; every kernel of the path must have been
-    launched during the requests (its counter is set to 0 just before);
-    one relinearize is held bit-exact against the plain versions;
+    launched during the requests (its counter is set to 0 just before),
+    with the launches split by step; one relinearize is held bit-exact
+    against the plain versions;
  5. timing: keyswitch ms/op and keyswitch/s (relinearize of a random
     size-3 ciphertext, bench.py's median-of-pairs marginal), launches per
     relinearize, and a device-only torch.profiler window of 10
-    relinearizes: kernel time by name and the device's busy share;
+    relinearizes: kernel time by name and the device's busy share (on the
+    q32 plan no two-phase inverse kernel may appear: K5 is one launch);
  6. rotations: Galois keys for steps 1, 2, 4, -1 and conjugation (no
     Shoup words, so the inner product is K7 on the u64 plan and K9 on the
     q32 plan), then 2 requests of encode -> encrypt -> rotate by 1, 2, -1
@@ -76,6 +82,7 @@ ROT_REQUESTS = 2
 ROT_STEPS = [1, 2, 4, -1]                # Galois keys (and conjugation)
 HOIST_STEPS = (0, 1, 2, 4)
 TOL = 1e-6
+TWO_PHASE_INVERSE = ("inv_rows", "inv_cols")   # K2's kernels; the q32 plan runs none
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
 # 32-bit integer multiply-add rate: Hopper issues 64 IMAD per SM and clock
 # (against 128 FFMA; NVIDIA's arithmetic-instruction throughput table for
@@ -302,6 +309,7 @@ def u64_slice(card: str) -> list:
     import torch
 
     from tpu_fhe_torch.core.modulus import CoeffModulus
+    from tpu_fhe_torch.core.ntt_tables import make_ntt_tables
     from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
     from tpu_fhe_torch.eval import evaluator as ev
     from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
@@ -333,6 +341,17 @@ def u64_slice(card: str) -> list:
     x2 = residues(comp.q, 2)
     ck.check("ntt_fwd", "(2, 30, 2^15)", lambda: ntt.forward_ntt(x2, comp),
              lambda: ntt.forward_ntt_plain(x2, comp), *ntt_cost(8, 2 * L, L))
+    one_launch("ntt_fwd (30, 2^15)", lambda: ntt.forward_ntt(x, level.ntt), "fwd_cluster")
+    # K1 at the larger rings (clusters of 8 blocks of 64 and 128 KB)
+    for log_n in (16, 17):
+        n = 1 << log_n
+        tabs = ntt.build_device_ntt_tables(
+            [make_ntt_tables(log_n, m.value) for m in CoeffModulus.create(n, BITS[:L])],
+            ctx.device)
+        xn = residue_maker(ctx.device, n, 2020 + log_n)(tabs.q)
+        ck.check("ntt_fwd", f"({L}, 2^{log_n})", lambda: ntt.forward_ntt(xn, tabs),
+                 lambda: ntt.forward_ntt_plain(xn, tabs), *ntt_cost(8, L, L, n=n))
+        del tabs, xn
     sub = residues(level.mod.q, 2)
     xs = residues(level.mod.q, 2)
     args = (kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
@@ -454,6 +473,8 @@ def q32_slice(card: str) -> list:
              lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale),
              lambda: ntt.inverse_ntt_plain(x, level.ntt, *scale),
              *ntt_cost(4, L, L, extra_muls=2), headline=True)
+    one_launch("ntt_inv32 (59, 2^15) scaled",
+               lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale), "inv_cluster")
     xp = residues(kst.p_mod.q, 2)
     pscale = (kst.p_hatinv, kst.p_hatinv_shoup)
     ck.check("ntt_inv32", "(2, 30, 2^15) scaled",
@@ -509,8 +530,8 @@ def q32_slice(card: str) -> list:
     log("[kernel] ntt_fwd32 == ntt_fwd and ntt_inv32 == ntt_inv on the 59 30-bit moduli "
         "of (59, 2^15), bit for bit")
     del x, xp, sub, xs, s, s2, t, evk, evk_s, wide, x64
-    # K4 at the larger rings (clusters of 4 and 8 blocks), 59 limbs of
-    # 30-bit primes each
+    # K4 and K5 at the larger rings (clusters of 4 and 8 blocks), 59 limbs
+    # of 30-bit primes each, K5 with a per-limb scale
     for log_n in (16, 17):
         n = 1 << log_n
         tabs = ntt.build_device_ntt_tables(
@@ -519,7 +540,13 @@ def q32_slice(card: str) -> list:
         xn = residue_maker(ctx.device, n, 2040 + log_n)(tabs.q)
         ck.check("ntt_fwd32", f"({L}, 2^{log_n})", lambda: ntt.forward_ntt(xn, tabs),
                  lambda: ntt.forward_ntt_plain(xn, tabs), *ntt_cost(4, L, L, n=n))
-        del tabs, xn
+        sv = residue_maker(ctx.device, 1, 2050 + log_n)(tabs.q).reshape(-1)
+        sn = (sv, mm.shoup32_of(sv, tabs.q.reshape(-1)))
+        ck.check("ntt_inv32", f"({L}, 2^{log_n}) scaled",
+                 lambda: ntt.inverse_ntt_scaled(xn, tabs, *sn),
+                 lambda: ntt.inverse_ntt_plain(xn, tabs, *sn),
+                 *ntt_cost(4, L, L, extra_muls=2, n=n))
+        del tabs, xn, sv, sn
 
     # -- 4. the q32 requests ------------------------------------------------
     launches, products, rlk, sk = run_requests("q32", ctx, ck, SCALE32,
@@ -568,19 +595,25 @@ def run_requests(tag: str, ctx, ck: Checker, scale: float, rescale, off_path: tu
     enc_gen = torch.Generator(device=ctx.device).manual_seed(11)
 
     ck.reset()
+    steps = StepLaunches(ck)
     products = []
     for r in range(REQUESTS):
         x_v, y_v = rng.standard_normal(N // 2), rng.standard_normal(N // 2)
         t0 = time.time()
         ct_x = sk.encrypt_symmetric(enc.encode(x_v, scale))
         ct_y = encrypt_asymmetric(ctx, pk, enc.encode(y_v, scale), enc_gen)
+        steps.add("encode+encrypt")
         torch.cuda.synchronize()
         t1 = time.time()
         prod = ev.multiply(ctx, ct_x, ct_y)
-        out = rescale(ev.relinearize(ctx, prod, rlk))
+        relin = ev.relinearize(ctx, prod, rlk)
+        steps.add("multiply+relinearize")
+        out = rescale(relin)
+        steps.add("rescale")
         torch.cuda.synchronize()
         t2 = time.time()
         got = enc.decode(sk.decrypt(out)).real
+        steps.add("decrypt+decode")
         t3 = time.time()
         if got.shape != (N // 2,) or not np.all(np.isfinite(got)):
             fail(f"{tag} request {r}: decoded {got.shape} with non-finite values")
@@ -594,8 +627,29 @@ def run_requests(tag: str, ctx, ck: Checker, scale: float, rescale, off_path: tu
         products.append(prod)
     launches = ck.launches()
     log(f"[{tag} slice] launches over {REQUESTS} requests: {launches}")
+    steps.log(f"[{tag} slice]", f"{REQUESTS} requests")
     ck.require_launched(f"{tag} relinearize", launches, off_path)
     return launches, products, rlk, sk
+
+
+class StepLaunches:
+    """Launches per kernel split by step: add(step) books the launches
+    since the last add (or since creation) under `step`."""
+
+    def __init__(self, ck: Checker):
+        self.ck, self.seen, self.by_step = ck, ck.launches(), {}
+
+    def add(self, step: str) -> None:
+        now = self.ck.launches()
+        row = self.by_step.setdefault(step, dict.fromkeys(now, 0))
+        for name, count in now.items():
+            row[name] += count - self.seen[name]
+        self.seen = now
+
+    def log(self, prefix: str, over: str) -> None:
+        for step, row in self.by_step.items():
+            log(f"{prefix} launches in {step} over {over}: "
+                f"{ {k: v for k, v in row.items() if v} }")
 
 
 def marginal_ms(tag: str, fn, iters: int = 50) -> tuple[float, float, int]:
@@ -674,6 +728,34 @@ def profile_ops(tag: str, fn, what: str, reps: int = 10) -> None:
     for e in sorted(device, key=lambda e: -e.self_device_time_total):
         log(f"[{tag} profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/{what}  "
             f"{e.count / reps:g} calls  {e.key[:90]}")
+    if tag == "q32" and any(k in e.key for e in device for k in TWO_PHASE_INVERSE):
+        fail(f"q32 {what}: a two-phase inverse kernel ran; K5 is one cluster launch")
+
+
+def one_launch(what: str, fn, kernel: str, reps: int = 10) -> None:
+    """A profile of `reps` calls of `fn` sees exactly one device kernel,
+    named `kernel`, `reps` times: the one-cluster-launch transform, not the
+    two-phase pair.  A profiler window after the first in a process can miss
+    its first device kernel (seen on the H100), so a fill of one byte leads
+    the window and is not counted."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    marker = torch.zeros(1, dtype=torch.int8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        marker.fill_(1)
+        torch.cuda.synchronize()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    seen = [(e.key, e.count) for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.key]
+    if len(seen) != 1 or seen[0][1] != reps or kernel not in seen[0][0]:
+        fail(f"{what}: expected {reps} launches of {kernel} alone, the profile saw {seen}")
+    log(f"[one launch] {what}: {kernel}, {reps} calls, {reps} launches")
 
 
 @contextlib.contextmanager
@@ -747,17 +829,20 @@ def rotation_phase(tag: str, ctx, ck: Checker, sk, scale: float, keep: int, off_
         return enc.decode(sk.decrypt(ct))
 
     ck.reset()
+    steps = StepLaunches(ck)
     cts = []
     for r in range(ROT_REQUESTS):
         x = rng.standard_normal(N // 2) + 1j * rng.standard_normal(N // 2)
         t0 = time.time()
         ct = sk.encrypt_symmetric(enc.encode(x, scale))
+        steps.add("encode+encrypt")
         torch.cuda.synchronize()
         t1 = time.time()
         outs = {f"rotate {s}": (ev.rotate(ctx, ct, s, gk), np.roll(x, -s)) for s in (1, 2, -1, 3)}
         outs["conjugate"] = (ev.conjugate(ctx, ct, gk), np.conj(x))
         outs[f"hoisted sum {HOIST_STEPS}"] = (ho.hoisted_rotation_sum(ctx, ct, HOIST_STEPS, gk),
                                               sum(np.roll(x, -s) for s in HOIST_STEPS))
+        steps.add("6 operations")
         torch.cuda.synchronize()
         t2 = time.time()
         errs = {}
@@ -767,6 +852,7 @@ def rotation_phase(tag: str, ctx, ck: Checker, sk, scale: float, keep: int, off_
                 fail(f"{tag} rotation request {r}, {name}: decoded {got.shape} with "
                      "non-finite values")
             errs[name] = float(np.max(np.abs(got - want)))
+        steps.add("drop+decrypt+decode")
         t3 = time.time()
         log(f"[{tag} rotation request {r}] encode+encrypt {t1 - t0:.3f} s, 6 operations "
             f"{(t2 - t1) * 1e3:.2f} ms, drop to {keep} limbs+decrypt+decode {t3 - t2:.2f} s; "
@@ -777,6 +863,7 @@ def rotation_phase(tag: str, ctx, ck: Checker, sk, scale: float, keep: int, off_
         cts.append(ct)
     launches = ck.launches()
     log(f"[{tag} rotations] launches over {ROT_REQUESTS} requests: {launches}")
+    steps.log(f"[{tag} rotations]", f"{ROT_REQUESTS} requests")
     ck.require_launched(f"{tag} rotation", launches, off_path)
 
     ct = cts[0]

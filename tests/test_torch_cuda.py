@@ -1,6 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on the card:
 the u64 plan's (K1-K3, K7, K8, K11) on a 50/60-bit chain, the q32 plan's
-(K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, and each slice
+(K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, the
+one-cluster-launch transforms (K1, K4, K5) at every ring size from 2^10 to
+2^17, and each slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum)
 on the card against the same slice on the CPU.
 
@@ -11,6 +13,8 @@ they run where only the port is installed:
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py -q
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 import torch
@@ -19,7 +23,7 @@ from tpu_fhe_torch.core.modulus import CoeffModulus
 from tpu_fhe_torch.core.ntt_tables import make_ntt_tables
 from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
 from tpu_fhe_torch.eval import evaluator as ev, hoisting as ho
-from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+from tpu_fhe_torch.ops import _build, bconv, ks, modarith as mm, ntt
 from tpu_fhe_torch.ops.ntt import build_device_ntt_tables
 from tpu_fhe_torch.scheme.context import FheContext
 from tpu_fhe_torch.scheme.keys import SecretKey
@@ -373,6 +377,91 @@ def test_q32_ntt_fwd_cluster_equals_plain_and_u64(gpu, log_n):
         assert torch.equal(got.to(torch.int64), ntt.forward_ntt(x.to(torch.int64), view64))
 
 
+# -- K1 and K5 as one cluster launch per limb ---------------------------------
+
+_BITS64 = [60, 50, 50, 60, 50, 60]
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 14, 15, 16, 17])
+def test_ntt_fwd_cluster_equals_plain(gpu, log_n):
+    """K1 (one launch; clusters of 1, 1, 1, 2, 4, 4, 8 and 8 blocks) against
+    its plain version through the full tables, a level slice and a digit
+    complement (a non-identity limb_map), with 2 x L rows."""
+    n = 1 << log_n
+    qs = [m.value for m in CoeffModulus.create(n, _BITS64)]
+    key = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], gpu)
+    for idx in (list(range(6)), [0, 1, 2, 3], [4, 1, 3]):
+        view = key.slice_limbs(idx)
+        x = _res(_Dev(gpu, n), view.q, 2, seed=log_n)
+        assert torch.equal(ntt.forward_ntt(x, view), ntt.forward_ntt_plain(x, view))
+
+
+def test_ntt_fwd_cluster_2_17_full_width(gpu):
+    """K1's shape at 2^17, 8 blocks of 128 KB per limb (one block per SM),
+    at the u64 plan's keyswitch width: 2 x 30 limbs, 480 blocks in several
+    waves."""
+    n = 1 << 17
+    qs = [m.value for m in CoeffModulus.create(n, [60] + [50] * 29)]
+    t = build_device_ntt_tables([make_ntt_tables(17, q) for q in qs], gpu)
+    x = _res(_Dev(gpu, n), t.q, 2, seed=17)
+    assert torch.equal(ntt.forward_ntt(x, t), ntt.forward_ntt_plain(x, t))
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 14, 15, 16, 17])
+def test_q32_ntt_inv_cluster_equals_plain_and_u64(gpu, log_n):
+    """K5 (one launch) against its plain version with and without a scale,
+    through three limb maps with 2 x L rows and at rescale's shapes (1 limb
+    x 2 rows, 2 limbs x 2 rows), and against K2 on the same 30-bit moduli."""
+    n = 1 << log_n
+    qs = _primes30(n, 6)
+    key = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], gpu, q32=True)
+    wide = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], gpu, q32=False)
+    for idx in (list(range(6)), [0, 1, 2, 3], [4, 1, 3], [5], [2, 0]):
+        view, view64 = key.slice_limbs(idx), wide.slice_limbs(idx)
+        x = _res32(_Dev(gpu, n), view.q, 2, seed=log_n)
+        s = _res32(_Dev(gpu, 1), view.q, seed=log_n + 1).reshape(-1)
+        for sc in ((None, None), (s, mm.shoup32_of(s, view.q.reshape(-1)))):
+            assert torch.equal(ntt.inverse_ntt_scaled(x, view, *sc),
+                               ntt.inverse_ntt_plain(x, view, *sc))
+        assert torch.equal(ntt.inverse_ntt(x, view).to(torch.int64),
+                           ntt.inverse_ntt(x.to(torch.int64), view64))
+
+
+def test_cluster_transforms_are_one_launch(gpu):
+    """A profile of one call of K1 (u64) and of K5 (q32, scaled) at 2^15
+    sees one device kernel each: the cluster kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    n = 1 << 15
+    t64 = build_device_ntt_tables([make_ntt_tables(15, q) for q in
+                                   (m.value for m in CoeffModulus.create(n, _BITS64))], gpu)
+    t32 = build_device_ntt_tables([make_ntt_tables(15, q) for q in _primes30(n, 6)], gpu,
+                                  q32=True)
+    x64, x32 = _res(_Dev(gpu, n), t64.q, seed=1), _res32(_Dev(gpu, n), t32.q, seed=2)
+    s = x32[:, 0].contiguous()
+    ss = mm.shoup32_of(s, t32.q.reshape(-1))
+    for fn, name in ((lambda: ntt.forward_ntt(x64, t64), "fwd_cluster"),
+                     (lambda: ntt.inverse_ntt_scaled(x32, t32, s, ss), "inv_cluster")):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        assert [e.count for e in kernels] == [1] and name in kernels[0].key
+
+
+def test_cluster_shape_matches_cpu_model(gpu):
+    """The blocks per ring that ClusterShape (csrc/ntt.cu) gives each word
+    at 2^10 .. 2^17: the list that tests/test_torch_ntt_cluster.py holds its
+    CPU model of the shape to, so the two change together."""
+    fn = _build.load("ntt.cu").tfhe_ntt_cluster_blocks
+    fn.argtypes, fn.restype = [ctypes.c_int, ctypes.c_int], ctypes.c_int
+    for word, want in {4: [1, 1, 1, 1, 2, 4, 4, 8], 8: [1, 1, 1, 2, 4, 4, 8, 8]}.items():
+        assert [fn(word, log_n) for log_n in range(10, 18)] == want
+
+
 def test_q32_redesigned_wrappers_refuse_bad_input(gpu):
     primes = _primes30(1 << 10, 16)
     g = torch.Generator(device=gpu).manual_seed(1)
@@ -397,3 +486,6 @@ def test_q32_redesigned_wrappers_refuse_bad_input(gpu):
         ntt.forward_ntt(x.transpose(0, 1).contiguous().transpose(0, 1), key)
     with pytest.raises(ValueError):                              # N of other tables
         ntt.forward_ntt(x[..., :512].contiguous(), key)
+    flat = torch.zeros(2 * 1024 + 1, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="16-byte"):             # K5's vector loads
+        ntt.inverse_ntt(flat[1:].reshape(2, 1024), key)

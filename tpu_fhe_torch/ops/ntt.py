@@ -2,11 +2,12 @@
 
 Port of ``tpu_fhe/ops/ntt.py``.  Each transform has a plain torch version
 (the stage loop of the JAX package's XLA path, canonical butterflies) and a
-CUDA kernel (``csrc/ntt.cu``, Harvey-lazy butterflies): the q32 forward
-transform (K4) in one launch per limb, held in the shared memory of a
-thread-block cluster, the others in the two-phase N1 x N2 split.  The
-wrappers take the plain version for CPU tensors only; for a CUDA tensor
-they launch the kernel or raise.
+CUDA kernel (``csrc/ntt.cu``, Harvey-lazy butterflies): the u64 and q32
+forward transforms (K1, K4) and the q32 inverse (K5) in one launch per
+limb, held in the shared memory of a thread-block cluster, the others (K2,
+K3, K6) in the two-phase N1 x N2 split.  The wrappers take the plain
+version for CPU tensors only; for a CUDA tensor they launch the kernel or
+raise.
 
 Two word sizes, chosen by the tables as the reference chooses its plan
 (``tpu_fhe/ops/ntt.py:206-211``): int64 tables and residues on the u64 plan
@@ -267,6 +268,8 @@ def inverse_ntt_scaled(x: torch.Tensor, t: DeviceNTTTables, scale: torch.Tensor 
     if _on_cpu(x, "inverse_ntt"):
         return inverse_ntt_plain(x, t, s, ss)
     rows, L, log_n = _launch_dims(x, t, "inverse_ntt")
+    if t.is_q32 and x.data_ptr() % 16:
+        raise ValueError("inverse_ntt: the q32 kernel reads 16-byte aligned data")
     out = torch.empty_like(x)
     (NTT_INV32 if t.is_q32 else NTT_INV)(
         ptr(x), ptr(out), ptr(t.inv_roots), ptr(t.inv_roots_shoup), ptr(t.key_q),
