@@ -22,14 +22,17 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     launches), the plain version's time and the least time the card could
     take (bytes at 3.35 TB/s against IMADs at 64 per SM and clock plus
     int8 tensor-core operations at 1,979 TOP/s; base conversion counted
-    in its digit-plane form); on the u64 plan also K1 at 2^16 and 2^17
-    (30 limbs of 50/60 bits), and a profile of one K1 call at (30, 2^15)
-    that must see one device kernel, fwd_cluster (on the q32 plan one K5
-    call at (59, 2^15), inv_cluster); on the q32 plan also K4 and K5 against K1
-    and K2 on the same 30-bit moduli, K4 and K5 (scaled) at 2^16 and 2^17
-    (59 limbs of 30 bits: the ring sizes where the cluster shape changes),
-    and torch._int_mm on bconv32's int8 operands as a yardstick of its
-    product part;
+    in its digit-plane form); the one-cluster-launch NTTs also at 2^16
+    and 2^17, the ring sizes where the cluster shape changes: on the u64
+    plan K1 and K2 (scaled) on 30 limbs of 50/60 bits, on the q32 plan K4
+    and K5 (scaled) on 59 limbs of 30 bits and K6 on 2 rows of them; a
+    profile of 10 calls of each cluster NTT on the path at 2^15 that must
+    see that one device kernel alone (u64: K1 at (30, 2^15) fwd_cluster,
+    K2 at (30, 2^15) scaled inv_cluster; q32: K5 at (59, 2^15) scaled
+    inv_cluster, K6 at (2, 59, 2^15) fwd_cluster with the Landing
+    epilogue); on the q32 plan also K4 and K5 against K1 and K2 on the
+    same 30-bit moduli, and torch._int_mm on bconv32's int8 operands as a
+    yardstick of its product part;
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
@@ -40,8 +43,9 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
  5. timing: keyswitch ms/op and keyswitch/s (relinearize of a random
     size-3 ciphertext, bench.py's median-of-pairs marginal), launches per
     relinearize, and a device-only torch.profiler window of 10
-    relinearizes: kernel time by name and the device's busy share (on the
-    q32 plan no two-phase inverse kernel may appear: K5 is one launch);
+    relinearizes: kernel time by name and the device's busy share (no
+    two-phase NTT kernel may appear on the q32 plan, and no two-phase
+    inverse on the u64 plan: only K3 runs two-phase);
  6. rotations: Galois keys for steps 1, 2, 4, -1 and conjugation (no
     Shoup words, so the inner product is K7 on the u64 plan and K9 on the
     q32 plan), then 2 requests of encode -> encrypt -> rotate by 1, 2, -1
@@ -82,7 +86,10 @@ ROT_REQUESTS = 2
 ROT_STEPS = [1, 2, 4, -1]                # Galois keys (and conjugation)
 HOIST_STEPS = (0, 1, 2, 4)
 TOL = 1e-6
-TWO_PHASE_INVERSE = ("inv_rows", "inv_cols")   # K2's kernels; the q32 plan runs none
+# Two-phase NTT kernels that a plan's profiles must not show: K3 (u64) is
+# the last user of fwd_cols/fwd_rows, and no kernel runs inv_rows/inv_cols
+TWO_PHASE = {"q32": ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols"),
+             "u64": ("inv_rows", "inv_cols")}
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
 # 32-bit integer multiply-add rate: Hopper issues 64 IMAD per SM and clock
 # (against 128 FFMA; NVIDIA's arithmetic-instruction throughput table for
@@ -309,7 +316,7 @@ def u64_slice(card: str) -> list:
     import torch
 
     from tpu_fhe_torch.core.modulus import CoeffModulus
-    from tpu_fhe_torch.core.ntt_tables import make_ntt_tables
+    from tpu_fhe_torch.core.ntt_tables import make_ntt_tables, shoup_np
     from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
     from tpu_fhe_torch.eval import evaluator as ev
     from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
@@ -341,8 +348,9 @@ def u64_slice(card: str) -> list:
     x2 = residues(comp.q, 2)
     ck.check("ntt_fwd", "(2, 30, 2^15)", lambda: ntt.forward_ntt(x2, comp),
              lambda: ntt.forward_ntt_plain(x2, comp), *ntt_cost(8, 2 * L, L))
-    one_launch("ntt_fwd (30, 2^15)", lambda: ntt.forward_ntt(x, level.ntt), "fwd_cluster")
-    # K1 at the larger rings (clusters of 8 blocks of 64 and 128 KB)
+    one_launch("ntt_fwd (30, 2^15)", lambda: ntt.forward_ntt(x, level.ntt), ("fwd_cluster",))
+    # K1 and K2 at the larger rings (clusters of 8 blocks of 64 and 128 KB),
+    # K2 with a per-limb scale
     for log_n in (16, 17):
         n = 1 << log_n
         tabs = ntt.build_device_ntt_tables(
@@ -351,7 +359,15 @@ def u64_slice(card: str) -> list:
         xn = residue_maker(ctx.device, n, 2020 + log_n)(tabs.q)
         ck.check("ntt_fwd", f"({L}, 2^{log_n})", lambda: ntt.forward_ntt(xn, tabs),
                  lambda: ntt.forward_ntt_plain(xn, tabs), *ntt_cost(8, L, L, n=n))
-        del tabs, xn
+        sv = residue_maker(ctx.device, 1, 2030 + log_n)(tabs.q).reshape(-1)
+        sn = (sv, mm.u64_tensor(np.concatenate([shoup_np([v], m) for v, m in
+                                                zip(sv.tolist(), tabs.q.reshape(-1).tolist())]),
+                                ctx.device))
+        ck.check("ntt_inv", f"({L}, 2^{log_n}) scaled",
+                 lambda: ntt.inverse_ntt_scaled(xn, tabs, *sn),
+                 lambda: ntt.inverse_ntt_plain(xn, tabs, *sn),
+                 *ntt_cost(8, L, L, extra_muls=2, n=n))
+        del tabs, xn, sv, sn
     sub = residues(level.mod.q, 2)
     xs = residues(level.mod.q, 2)
     args = (kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
@@ -365,6 +381,8 @@ def u64_slice(card: str) -> list:
              lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale),
              lambda: ntt.inverse_ntt_plain(x, level.ntt, *scale),
              *ntt_cost(8, L, L, extra_muls=2), headline=True)
+    one_launch("ntt_inv (30, 2^15) scaled",
+               lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale), ("inv_cluster",))
     xp = residues(kst.p_mod.q, 2)
     pscale = (kst.p_hatinv, kst.p_hatinv_shoup)
     ck.check("ntt_inv", "(2, 15, 2^15) scaled",
@@ -474,7 +492,7 @@ def q32_slice(card: str) -> list:
              lambda: ntt.inverse_ntt_plain(x, level.ntt, *scale),
              *ntt_cost(4, L, L, extra_muls=2), headline=True)
     one_launch("ntt_inv32 (59, 2^15) scaled",
-               lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale), "inv_cluster")
+               lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale), ("inv_cluster",))
     xp = residues(kst.p_mod.q, 2)
     pscale = (kst.p_hatinv, kst.p_hatinv_shoup)
     ck.check("ntt_inv32", "(2, 30, 2^15) scaled",
@@ -488,6 +506,9 @@ def q32_slice(card: str) -> list:
              lambda: ntt.forward_ntt_sub_scale_plain(xs, sub, level.ntt, *post),
              4 * N * (3 * 2 * L + 2 * L), ntt_cost(4, 2 * L, L, extra_muls=1)[1],
              headline=True)
+    one_launch("ntt_fwd_landing32 (2, 59, 2^15)",
+               lambda: ntt.forward_ntt_sub_scale(xs, sub, level.ntt, *post),
+               ("fwd_cluster", "Landing"))
     for dt in kst.digits:
         k_in, m_out = dt.end - dt.start, dt.comp_mod.q.shape[0]
         s = residues(level.mod.q[dt.start:dt.end])
@@ -530,8 +551,9 @@ def q32_slice(card: str) -> list:
     log("[kernel] ntt_fwd32 == ntt_fwd and ntt_inv32 == ntt_inv on the 59 30-bit moduli "
         "of (59, 2^15), bit for bit")
     del x, xp, sub, xs, s, s2, t, evk, evk_s, wide, x64
-    # K4 and K5 at the larger rings (clusters of 4 and 8 blocks), 59 limbs
-    # of 30-bit primes each, K5 with a per-limb scale
+    # K4, K5 and K6 at the larger rings (clusters of 4 and 8 blocks), 59
+    # limbs of 30-bit primes each, K5 with a per-limb scale, K6 on 2 rows
+    # with moddown's post multiply alone
     for log_n in (16, 17):
         n = 1 << log_n
         tabs = ntt.build_device_ntt_tables(
@@ -546,7 +568,13 @@ def q32_slice(card: str) -> list:
                  lambda: ntt.inverse_ntt_scaled(xn, tabs, *sn),
                  lambda: ntt.inverse_ntt_plain(xn, tabs, *sn),
                  *ntt_cost(4, L, L, extra_muls=2, n=n))
-        del tabs, xn, sv, sn
+        xn2, subn = (residue_maker(ctx.device, n, s)(tabs.q, 2) for s in (2060 + log_n,
+                                                                          2070 + log_n))
+        ck.check("ntt_fwd_landing32", f"(2, {L}, 2^{log_n})",
+                 lambda: ntt.forward_ntt_sub_scale(xn2, subn, tabs, *sn),
+                 lambda: ntt.forward_ntt_sub_scale_plain(xn2, subn, tabs, *sn),
+                 4 * n * (3 * 2 * L + 2 * L), ntt_cost(4, 2 * L, L, extra_muls=1, n=n)[1])
+        del tabs, xn, sv, sn, xn2, subn
 
     # -- 4. the q32 requests ------------------------------------------------
     launches, products, rlk, sk = run_requests("q32", ctx, ck, SCALE32,
@@ -698,64 +726,86 @@ def keyswitch_timing(tag: str, where: str, ctx, ct3, rlk, ck: Checker, card: str
         profile_ops(tag, relin, "relinearize")
 
 
-def profile_ops(tag: str, fn, what: str, reps: int = 10) -> None:
-    """Device time by kernel over `reps` calls of `fn` (torch.profiler,
-    device activity only, so that host tracing does not stretch the
-    window), and the device's busy share of the window timed with CUDA
-    events."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        start.record()
-        for _ in range(reps):
-            fn()
-        end.record()
-        end.synchronize()
-    window_ms = start.elapsed_time(end)
-    device = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
-    if busy_ms <= 0:
-        log(f"[{tag} profile] the profiler saw no device time: busy share not measured")
-        return
-    log(f"[{tag} profile] {reps} {what}s: window {window_ms:.3f} ms, device busy "
-        f"{busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), idle "
-        f"{100 * (1 - busy_ms / window_ms):.1f}%")
-    for e in sorted(device, key=lambda e: -e.self_device_time_total):
-        log(f"[{tag} profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/{what}  "
-            f"{e.count / reps:g} calls  {e.key[:90]}")
-    if tag == "q32" and any(k in e.key for e in device for k in TWO_PHASE_INVERSE):
-        fail(f"q32 {what}: a two-phase inverse kernel ran; K5 is one cluster launch")
-
-
-def one_launch(what: str, fn, kernel: str, reps: int = 10) -> None:
-    """A profile of `reps` calls of `fn` sees exactly one device kernel,
-    named `kernel`, `reps` times: the one-cluster-launch transform, not the
-    two-phase pair.  A profiler window after the first in a process can miss
-    its first device kernel (seen on the H100), so a fill of one byte leads
-    the window and is not counted."""
+def device_kernels(run) -> list:
+    """torch.profiler's device kernels (key_averages) over `run()`, device
+    activity only, so that host tracing does not stretch the window.  A
+    profiler window after the first in a process can miss its first device
+    kernel (seen on the H100: 9 of 10 launches of one kernel), so a fill of
+    one byte and a synchronize lead the window; the fill is not counted (no
+    profiled operation fills memory).  Later windows of a long process can
+    still lose events (whole operations, seen on the H100), which
+    profile_ops flags."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     marker = torch.zeros(1, dtype=torch.int8, device="cuda")
-    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         marker.fill_(1)
         torch.cuda.synchronize()
+        run()
+    return [e for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.key]
+
+
+def profile_ops(tag: str, fn, what: str, reps: int = 10) -> None:
+    """Device time by kernel over `reps` calls of `fn` and the device's busy
+    share of the window timed with CUDA events.  Every call runs the same
+    kernels, so a count that is not a multiple of `reps` means the profiler
+    lost events, and the line says so."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def run():
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        end.synchronize()
+
+    device = device_kernels(run)
+    window_ms = start.elapsed_time(end)
+    busy_ms = sum(e.self_device_time_total for e in device) / 1e3
+    if busy_ms <= 0:
+        log(f"[{tag} profile] the profiler saw no device time: busy share not measured")
+        return
+    lost = any(e.count % reps for e in device)
+    log(f"[{tag} profile] {reps} {what}s: window {window_ms:.3f} ms, device busy "
+        f"{busy_ms:.3f} ms ({100 * busy_ms / window_ms:.1f}%), idle "
+        f"{100 * (1 - busy_ms / window_ms):.1f}%"
+        + ("; the profiler lost events, busy undercounted" if lost else ""))
+    for e in sorted(device, key=lambda e: -e.self_device_time_total):
+        log(f"[{tag} profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/{what}  "
+            f"{e.count / reps:g} calls  {e.key[:90]}")
+    ran = sorted({k for e in device for k in TWO_PHASE[tag] if k in e.key})
+    if ran:
+        fail(f"{tag} {what}: two-phase NTT kernels ran ({', '.join(ran)}); the plan's "
+             "transforms but K3 are one cluster launch")
+
+
+def one_launch(what: str, fn, names: tuple, reps: int = 10) -> None:
+    """A profile of `reps` calls of `fn` sees exactly one device kernel,
+    whose name holds every one of `names`, `reps` times: the
+    one-cluster-launch transform, not the two-phase pair."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    seen = [(e.key, e.count) for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.key]
-    if len(seen) != 1 or seen[0][1] != reps or kernel not in seen[0][0]:
-        fail(f"{what}: expected {reps} launches of {kernel} alone, the profile saw {seen}")
-    log(f"[one launch] {what}: {kernel}, {reps} calls, {reps} launches")
+
+    seen = [(e.key, e.count) for e in device_kernels(run)]
+    if len(seen) != 1 or seen[0][1] != reps or not all(k in seen[0][0] for k in names):
+        fail(f"{what}: expected {reps} launches of {' '.join(names)} alone, the profile "
+             f"saw {seen}")
+    log(f"[one launch] {what}: {' '.join(names)}, {reps} calls, {reps} launches")
 
 
 @contextlib.contextmanager

@@ -1,8 +1,8 @@
 """The port's CUDA kernels against their plain torch versions, on the card:
 the u64 plan's (K1-K3, K7, K8, K11) on a 50/60-bit chain, the q32 plan's
 (K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, the
-one-cluster-launch transforms (K1, K4, K5) at every ring size from 2^10 to
-2^17, and each slice
+one-cluster-launch transforms (K1, K2, K4, K5, K6) at every ring size from
+2^10 to 2^17, and each slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum)
 on the card against the same slice on the CPU.
 
@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from tpu_fhe_torch.core.modulus import CoeffModulus
-from tpu_fhe_torch.core.ntt_tables import make_ntt_tables
+from tpu_fhe_torch.core.ntt_tables import make_ntt_tables, shoup_np
 from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
 from tpu_fhe_torch.eval import evaluator as ev, hoisting as ho
 from tpu_fhe_torch.ops import _build, bconv, ks, modarith as mm, ntt
@@ -427,9 +427,93 @@ def test_q32_ntt_inv_cluster_equals_plain_and_u64(gpu, log_n):
                            ntt.inverse_ntt(x.to(torch.int64), view64))
 
 
+# -- K6 and K2 as one cluster launch per limb ---------------------------------
+
+def _scale32(gpu, q, seed):
+    """A per-limb constant and its Shoup32 word for moduli q (L, 1)."""
+    s = _res32(_Dev(gpu, 1), q, seed=seed).reshape(-1)
+    return s, mm.shoup32_of(s, q.reshape(-1))
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 14, 15, 16, 17])
+def test_q32_ntt_fwd_landing_cluster_equals_plain(gpu, log_n):
+    """K6 (K4's launch with the landing epilogue) against its plain version
+    with and without pre, through the full tables, rescale_composite's
+    shape (2 rows of Ql - 2 = 4 of 6 limbs) and a digit complement (a
+    non-identity limb_map), with 2 x L rows."""
+    n = 1 << log_n
+    key = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in _primes30(n, 6)], gpu,
+                                  q32=True)
+    for idx in (list(range(6)), [0, 1, 2, 3], [4, 1, 3]):
+        view = key.slice_limbs(idx)
+        x = _res32(_Dev(gpu, n), view.q, 2, seed=log_n)
+        sub = _res32(_Dev(gpu, n), view.q, 2, seed=log_n + 1)
+        post = _scale32(gpu, view.q, log_n + 2)
+        for pre in ((None, None), _scale32(gpu, view.q, log_n + 3)):
+            assert torch.equal(ntt.forward_ntt_sub_scale(x, sub, view, *post, *pre),
+                               ntt.forward_ntt_sub_scale_plain(x, sub, view, *post, *pre))
+
+
+def test_q32_ntt_fwd_landing_full_width(gpu):
+    """K6 at moddown's full-width shape on the q32 plan: (2, 59, 2^15), 472
+    blocks in two waves, with and without pre."""
+    n = 1 << 15
+    t = build_device_ntt_tables([make_ntt_tables(15, q) for q in _primes30(n, 59)], gpu,
+                                q32=True)
+    x = _res32(_Dev(gpu, n), t.q, 2, seed=15)
+    sub = _res32(_Dev(gpu, n), t.q, 2, seed=16)
+    post = _scale32(gpu, t.q, 17)
+    for pre in ((None, None), _scale32(gpu, t.q, 18)):
+        assert torch.equal(ntt.forward_ntt_sub_scale(x, sub, t, *post, *pre),
+                           ntt.forward_ntt_sub_scale_plain(x, sub, t, *post, *pre))
+
+
+_BITS64_15 = _BITS64 * 2 + [60, 50, 60]          # 15 limbs: moddown's P part
+
+
+def _shoup64(s, q):
+    """floor(s * 2^64 / q) per limb as int64 bit patterns."""
+    return mm.u64_tensor(np.concatenate([shoup_np([v], m) for v, m in zip(s.tolist(),
+                                                                           q.tolist())]),
+                         s.device)
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 14, 15, 16, 17])
+def test_ntt_inv_cluster_equals_plain(gpu, log_n):
+    """K2 (one launch on u64 words) against its plain version with and
+    without a scale: moddown's shape (2 rows of 15 limbs), a level slice, a
+    digit complement (a non-identity limb_map) and rescale's shapes (1 limb
+    x 2 rows, 2 limbs x 2 rows)."""
+    n = 1 << log_n
+    qs = [m.value for m in CoeffModulus.create(n, _BITS64_15)]
+    key = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], gpu)
+    for idx in (list(range(15)), [0, 1, 2, 3], [4, 1, 3], [5], [2, 0]):
+        view = key.slice_limbs(idx)
+        x = _res(_Dev(gpu, n), view.q, 2, seed=log_n)
+        s = _res(_Dev(gpu, 1), view.q, seed=log_n + 1).reshape(-1)
+        ss = _shoup64(s, view.q.reshape(-1))
+        for sc in ((None, None), (s, ss)):
+            assert torch.equal(ntt.inverse_ntt_scaled(x, view, *sc),
+                               ntt.inverse_ntt_plain(x, view, *sc))
+
+
+def test_ntt_inv_cluster_2_17_full_width(gpu):
+    """K2's shape at 2^17, 8 blocks of 128 KB per limb (one block per SM),
+    scaled, at the u64 plan's keyswitch width: 2 x 30 limbs, 480 blocks in
+    several waves."""
+    n = 1 << 17
+    qs = [m.value for m in CoeffModulus.create(n, [60] + [50] * 29)]
+    t = build_device_ntt_tables([make_ntt_tables(17, q) for q in qs], gpu)
+    x = _res(_Dev(gpu, n), t.q, 2, seed=17)
+    s = _res(_Dev(gpu, 1), t.q, seed=18).reshape(-1)
+    sc = (s, _shoup64(s, t.q.reshape(-1)))
+    assert torch.equal(ntt.inverse_ntt_scaled(x, t, *sc), ntt.inverse_ntt_plain(x, t, *sc))
+
+
 def test_cluster_transforms_are_one_launch(gpu):
-    """A profile of one call of K1 (u64) and of K5 (q32, scaled) at 2^15
-    sees one device kernel each: the cluster kernel."""
+    """A profile of one call of K1 (u64), K2 (u64, scaled), K5 (q32,
+    scaled) and K6 (q32, with pre) at 2^15 sees one device kernel each:
+    the cluster kernel, K6's with the landing epilogue."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -439,17 +523,42 @@ def test_cluster_transforms_are_one_launch(gpu):
     t32 = build_device_ntt_tables([make_ntt_tables(15, q) for q in _primes30(n, 6)], gpu,
                                   q32=True)
     x64, x32 = _res(_Dev(gpu, n), t64.q, seed=1), _res32(_Dev(gpu, n), t32.q, seed=2)
+    sub32 = _res32(_Dev(gpu, n), t32.q, seed=3)
     s = x32[:, 0].contiguous()
     ss = mm.shoup32_of(s, t32.q.reshape(-1))
-    for fn, name in ((lambda: ntt.forward_ntt(x64, t64), "fwd_cluster"),
-                     (lambda: ntt.inverse_ntt_scaled(x32, t32, s, ss), "inv_cluster")):
+    s64 = x64[:, 0].contiguous()
+    ss64 = _shoup64(s64, t64.q.reshape(-1))
+    for fn, names in ((lambda: ntt.forward_ntt(x64, t64), ("fwd_cluster",)),
+                      (lambda: ntt.inverse_ntt_scaled(x64, t64, s64, ss64), ("inv_cluster",)),
+                      (lambda: ntt.inverse_ntt_scaled(x32, t32, s, ss), ("inv_cluster",)),
+                      (lambda: ntt.forward_ntt_sub_scale(x32, sub32, t32, s, ss, s, ss),
+                       ("fwd_cluster", "Landing"))):
         fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
         kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-        assert [e.count for e in kernels] == [1] and name in kernels[0].key
+        assert [e.count for e in kernels] == [1]
+        assert all(name in kernels[0].key for name in names)
+
+
+def test_cluster_wrappers_refuse_misaligned_input(gpu):
+    """K6 reads `sub` and K2 its data in 16-byte runs: the wrappers raise
+    on a tensor that is not 16-byte aligned."""
+    n = 1 << 10
+    t32 = build_device_ntt_tables([make_ntt_tables(10, q) for q in _primes30(n, 2)], gpu,
+                                  q32=True)
+    x = _res32(_Dev(gpu, n), t32.q, 2)
+    post = _scale32(gpu, t32.q, 1)
+    flat32 = torch.zeros(2 * 2 * n + 1, dtype=torch.int32, device=gpu)
+    with pytest.raises(ValueError, match="16-byte"):
+        ntt.forward_ntt_sub_scale(x, flat32[1:].reshape(2, 2, n), t32, *post)
+    qs = [m.value for m in CoeffModulus.create(n, _BITS64[:2])]
+    t64 = build_device_ntt_tables([make_ntt_tables(10, q) for q in qs], gpu)
+    flat64 = torch.zeros(2 * n + 1, dtype=torch.int64, device=gpu)
+    with pytest.raises(ValueError, match="16-byte"):
+        ntt.inverse_ntt(flat64[1:].reshape(2, n), t64)
 
 
 def test_cluster_shape_matches_cpu_model(gpu):

@@ -134,31 +134,84 @@ def _slots(lb, k: int, log_u: int):
     return pad32(lb + (k << log_u))
 
 
-def _row_tables(t, roots, roots_s, lead: int, word: Word):
+def _unsigned(t, v: torch.Tensor) -> torch.Tensor:
+    """The tables' words as the kernels see them: u64 bit patterns as they
+    are, int32 bit patterns as their u32 values."""
+    return ma.u32_of_i32(v) if t.is_q32 else v
+
+
+def _row_tables(t, roots, roots_s, lead: int):
     """Per polynomial row (rows = lead * L): the twiddle planes and q of its
     limb, as the kernels find them through limb_map."""
-    conv = (lambda v: v) if word.bits == 64 else ma.u32_of_i32
     key = t.limb_map.repeat(lead)
-    return conv(roots[key]), conv(roots_s[key]), conv(t.key_q[key]).reshape(-1, 1, 1)
+    return (_unsigned(t, roots[key]), _unsigned(t, roots_s[key]),
+            _unsigned(t, t.key_q[key]).reshape(-1, 1, 1))
 
 
-def cluster_forward(x: torch.Tensor, t, log_c: int | None = None) -> torch.Tensor:
-    """fwd_cluster with FinalReduce on u64 words: (..., L, N) int64."""
-    word = Word(64)
-    lead, n = x.shape[:-1], x.shape[-1]
-    log_n = n.bit_length() - 1
-    sh = cluster_shape(8, log_n, log_c)
-    c, m, log_m, log_c = sh["c"], sh["m"], sh["log_m"], sh["log_c"]
-    src = x.reshape(-1, n)
-    w_rows, ws_rows, q = _row_tables(t, t.roots, t.roots_shoup, src.shape[0] // t.num_limbs,
-                                     word)
-    rows = src.shape[0]
+def _per_row(t, v: torch.Tensor, lead: int) -> torch.Tensor:
+    """A per-limb constant (L,) as (rows, 1, 1): what each block reads once
+    at its limb."""
+    return _unsigned(t, v.reshape(-1).repeat(lead)).reshape(-1, 1, 1)
 
+
+def _twiddles(w_rows, ws_rows, rows: int, c: int):
+    """tw(idx): both tables at twiddle index idx (an int, or (C, k) per
+    block), as (rows, C, k)."""
     def tw(idx):
         idx = torch.as_tensor(idx).expand(c, -1) if torch.is_tensor(idx) else \
             torch.full((c, 1), idx)
         return (w_rows[:, idx.reshape(-1)].reshape(rows, *idx.shape),
                 ws_rows[:, idx.reshape(-1)].reshape(rows, *idx.shape))
+    return tw
+
+
+def final_reduce(q):
+    """FinalReduce's bound form: each run [0, 4q) -> [0, q)."""
+    def land(v: list, at) -> list:
+        return [ma.csub(torch.where(e >= 2 * q, e - 2 * q, e), q) for e in v]
+    return land
+
+
+def landing(word: Word, t, q, lead: int, sub, post, post_s, pre=None, pre_s=None):
+    """Landing's bound form: (sub - pre * y) * post mod q on each run, in
+    fwd_rows' order, reading the run of `sub` at the same offsets (whole,
+    16-byte aligned runs, as load_run reads them); the constants per row,
+    read once."""
+    wb = 4 if t.is_q32 else 8
+    sub_rows = _unsigned(t, sub.reshape(-1, sub.shape[-1]))
+    post, post_s = _per_row(t, post, lead), _per_row(t, post_s, lead)
+    if pre is not None:
+        pre, pre_s = _per_row(t, pre, lead), _per_row(t, pre_s, lead)
+    reduce = final_reduce(q)
+
+    def land(v: list, at) -> list:
+        assert len(v) * wb % 16 == 0 and bool((at * wb % 16 == 0).all())
+        runs = [sub_rows[:, (at + k).reshape(-1)].reshape(v[0].shape) for k in range(len(v))]
+        out = []
+        for y, s in zip(reduce(v, at), runs):
+            if pre is not None:
+                y = ma.csub(word.shoup_lazy(y, pre, pre_s, q), q)
+            d = ma.csub(s + q - y, q)
+            out.append(ma.csub(word.shoup_lazy(d, post, post_s, q), q))
+        return out
+    return land
+
+
+def cluster_forward(x: torch.Tensor, t, log_c: int | None = None, land=None) -> torch.Tensor:
+    """fwd_cluster on the tables' word ((..., L, N) int64 or int32), with
+    FinalReduce or, given land = (sub, post, post_s, pre, pre_s) (pre pair
+    may be None), the Landing epilogue."""
+    word = Word(32 if t.is_q32 else 64)
+    lead, n = x.shape[:-1], x.shape[-1]
+    log_n = n.bit_length() - 1
+    sh = cluster_shape(word.bits // 8, log_n, log_c)
+    c, m, log_m, log_c = sh["c"], sh["m"], sh["log_m"], sh["log_c"]
+    src = _unsigned(t, x.reshape(-1, n))
+    rows = src.shape[0]
+    per = rows // t.num_limbs
+    w_rows, ws_rows, q = _row_tables(t, t.roots, t.roots_shoup, per)
+    tw = _twiddles(w_rows, ws_rows, rows, c)
+    epi = final_reduce(q) if land is None else landing(word, t, q, per, *land)
 
     buf = torch.zeros(rows, c, m + m // 32, dtype=torch.int64)
     if c > 1:
@@ -185,35 +238,34 @@ def cluster_forward(x: torch.Tensor, t, log_c: int | None = None) -> torch.Tenso
         v = [buf[:, :, s] for s in slot]
         radix_fwd(word, v, tw, r, 1 << stage, i, q)
         if last:                                             # 2^r consecutive words
-            for k in range(1 << r):
-                e = v[k]
-                e = torch.where(e >= 2 * q, e - 2 * q, e)
-                out[:, (chunk0 + lb + k).reshape(-1)] = ma.csub(e, q).reshape(rows, -1)
+            at = chunk0 + lb
+            for k, e in enumerate(epi(v, at)):
+                out[:, (at + k).reshape(-1)] = e.reshape(rows, -1)
         else:
             for k, s in enumerate(slot):
                 buf[:, :, s] = v[k]
         stage += r
-    return out.reshape(*lead, n)
+    return (ma.i32_of_u32(out) if t.is_q32 else out).reshape(*lead, n)
 
 
 def cluster_inverse(x: torch.Tensor, t, scale=None, scale_shoup=None,
                     log_c: int | None = None) -> torch.Tensor:
-    """inv_cluster on q32 words: (..., L, N) int32, scale (L,) or None."""
-    word = Word(32)
+    """inv_cluster on the tables' word: (..., L, N) int64 or int32, scale
+    (L,) or None."""
+    word = Word(32 if t.is_q32 else 64)
     lead, n = x.shape[:-1], x.shape[-1]
     log_n = n.bit_length() - 1
-    sh = cluster_shape(4, log_n, log_c)
+    sh = cluster_shape(word.bits // 8, log_n, log_c)
     c, m, log_m, log_c = sh["c"], sh["m"], sh["log_m"], sh["log_c"]
-    src = ma.u32_of_i32(x.reshape(-1, n))
+    src = _unsigned(t, x.reshape(-1, n))
     rows = src.shape[0]
     per = rows // t.num_limbs
-    w_rows, ws_rows, q = _row_tables(t, t.inv_roots, t.inv_roots_shoup, per, word)
+    w_rows, ws_rows, q = _row_tables(t, t.inv_roots, t.inv_roots_shoup, per)
     key = t.limb_map.repeat(per)
-    f, fs = (ma.u32_of_i32(v[key]).reshape(-1, 1, 1) for v in (t.inv_degree,
+    f, fs = (_unsigned(t, v[key]).reshape(-1, 1, 1) for v in (t.inv_degree,
                                                                t.inv_degree_shoup))
     if scale is not None:
-        s, ss = (ma.u32_of_i32(v.reshape(-1).repeat(per)).reshape(-1, 1, 1)
-                 for v in (scale, scale_shoup))
+        s, ss = _per_row(t, scale, per), _per_row(t, scale_shoup, per)
 
     def epi(v):
         v = word.shoup_lazy(v, f, fs, q)
@@ -221,12 +273,7 @@ def cluster_inverse(x: torch.Tensor, t, scale=None, scale_shoup=None,
             v = word.shoup_lazy(v, s, ss, q)
         return ma.csub(v, q)
 
-    def tw(idx):
-        idx = torch.as_tensor(idx).expand(c, -1) if torch.is_tensor(idx) else \
-            torch.full((c, 1), idx)
-        return (w_rows[:, idx.reshape(-1)].reshape(rows, *idx.shape),
-                ws_rows[:, idx.reshape(-1)].reshape(rows, *idx.shape))
-
+    tw = _twiddles(w_rows, ws_rows, rows, c)
     buf = torch.zeros(rows, c, m + m // 32, dtype=torch.int64)
     out = torch.empty_like(src)
     chunk0 = (torch.arange(c) << log_m)[:, None]
@@ -257,13 +304,26 @@ def cluster_inverse(x: torch.Tensor, t, scale=None, scale_shoup=None,
         radix_inv(word, v, tw, log_c, 1, 0, q)
         for b in range(c):
             out[:, ((b << log_m) + col).reshape(-1)] = epi(v[b]).reshape(rows, -1)
-    return ma.i32_of_u32(out).reshape(*lead, n)
+    return (ma.i32_of_u32(out) if t.is_q32 else out).reshape(*lead, n)
 
 
 # -- against the plain versions and the reference's golden transforms -------
 
+def _word_tensor(word: int):
+    return ma.u32_tensor if word == 4 else ma.u64_tensor
+
+
+def _shoup(vals, qs, word: int):
+    """floor(w * 2^(8 word) / q) per limb, in plain Python integers."""
+    return _word_tensor(word)([(int(w) << (8 * word)) // int(q) for w, q in zip(vals, qs)],
+                              "cpu")
+
+
 @pytest.fixture(scope="module", params=[10, 11, 12, 13])
 def ring(request):
+    """Per word: the view (limb_map VIEW) of key-level tables, 2 rows of
+    residues x and sub, per-limb constants with their Shoup words (scale,
+    post, pre) and, on row (1, 0), the reference's golden transforms."""
     log_n = request.param
     n = 1 << log_n
     out = {"log_n": log_n}
@@ -272,19 +332,21 @@ def ring(request):
         key = ntt.build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], "cpu",
                                           q32=word == 4)
         view = key.slice_limbs(VIEW)
-        vq = np.array([qs[i] for i in VIEW], dtype=np.uint64)[:, None]
+        vq = np.array([qs[i] for i in VIEW], dtype=np.uint64)
         rng = np.random.default_rng(100 * log_n + word)
-        x = rng.integers(0, 2**62, size=(BATCH_ROWS, len(VIEW), n), dtype=np.uint64) % vq
-        golden = (golden_forward_ntt if word == 8 else golden_inverse_ntt)(
-            [int(v) for v in x[1, 0]], j_make_ntt_tables(log_n, qs[VIEW[0]]))
-        out[word] = dict(view=view, golden=np.array(golden, dtype=np.uint64))
-        if word == 8:
-            out[word]["x"] = ma.u64_tensor(x, "cpu")
-        else:
-            s = ma.u32_tensor(rng.integers(0, 2**62, size=len(VIEW), dtype=np.uint64)
-                              % vq[:, 0], "cpu")
-            out[word].update(x=ma.u32_tensor(x, "cpu"), s=s,
-                             ss=ma.shoup32_of(s, view.q.reshape(-1)))
+        x, sub = (rng.integers(0, 2**62, size=(BATCH_ROWS, len(VIEW), n), dtype=np.uint64)
+                  % vq[:, None] for _ in range(2))
+        j_tab = j_make_ntt_tables(log_n, qs[VIEW[0]])
+        d = dict(view=view, x=_word_tensor(word)(x, "cpu"), sub=_word_tensor(word)(sub, "cpu"),
+                 golden_fwd=np.array(golden_forward_ntt([int(v) for v in x[1, 0]], j_tab),
+                                     dtype=np.uint64),
+                 golden_inv=np.array(golden_inverse_ntt([int(v) for v in x[1, 0]], j_tab),
+                                     dtype=np.uint64),
+                 sub_row=sub[1, 0], q0=int(vq[0]))
+        for name in ("s", "post", "pre"):
+            vals = rng.integers(0, 2**62, size=len(VIEW), dtype=np.uint64) % vq
+            d[name] = (_word_tensor(word)(vals, "cpu"), _shoup(vals, vq, word))
+        out[word] = d
     return out
 
 
@@ -294,19 +356,50 @@ def test_forward_push_schedule_u64(ring, log_c):
     got = cluster_forward(d["x"], d["view"], log_c)
     assert got.dtype == torch.int64 and got.shape == d["x"].shape
     assert torch.equal(got, ntt.forward_ntt_plain(d["x"], d["view"]))
-    np.testing.assert_array_equal(to_numpy(got)[1, 0], d["golden"])
+    np.testing.assert_array_equal(to_numpy(got)[1, 0], d["golden_fwd"])
+
+
+@pytest.mark.parametrize("with_pre", [False, True])
+@pytest.mark.parametrize("log_c", [0, 1, 2, 3])
+def test_forward_landing_push_schedule_q32(ring, log_c, with_pre):
+    """K6: the push schedule on q32 words with the Landing epilogue, with
+    and without pre; on row (1, 0) the reference's golden forward
+    transform followed by the landing in plain Python."""
+    d = ring[4]
+    pre = d["pre"] if with_pre else (None, None)
+    args = (d["sub"], *d["post"], *pre)
+    got = cluster_forward(d["x"], d["view"], log_c, land=args)
+    assert got.dtype == torch.int32 and got.shape == d["x"].shape
+    assert torch.equal(got, ntt.forward_ntt_sub_scale_plain(d["x"], d["sub"], d["view"], *args[1:]))
+    q = d["q0"]
+    post, pre_v = int(d["post"][0][0]), int(d["pre"][0][0]) if with_pre else 1
+    want = [(int(s) - pre_v * int(y)) * post % q for s, y in zip(d["sub_row"], d["golden_fwd"])]
+    np.testing.assert_array_equal(to_numpy(got)[1, 0], np.array(want, dtype=np.uint64))
 
 
 @pytest.mark.parametrize("scaled", [False, True])
 @pytest.mark.parametrize("log_c", [0, 1, 2, 3])
 def test_inverse_pull_schedule_q32(ring, log_c, scaled):
     d = ring[4]
-    sc = (d["s"], d["ss"]) if scaled else (None, None)
+    sc = d["s"] if scaled else (None, None)
     got = cluster_inverse(d["x"], d["view"], *sc, log_c=log_c)
     assert got.dtype == torch.int32 and got.shape == d["x"].shape
     assert torch.equal(got, ntt.inverse_ntt_plain(d["x"], d["view"], *sc))
     if not scaled:
-        np.testing.assert_array_equal(to_numpy(got)[1, 0], d["golden"])
+        np.testing.assert_array_equal(to_numpy(got)[1, 0], d["golden_inv"])
+
+
+@pytest.mark.parametrize("scaled", [False, True])
+@pytest.mark.parametrize("log_c", [0, 1, 2, 3])
+def test_inverse_pull_schedule_u64(ring, log_c, scaled):
+    """K2: the pull schedule on u64 words, with and without scale."""
+    d = ring[8]
+    sc = d["s"] if scaled else (None, None)
+    got = cluster_inverse(d["x"], d["view"], *sc, log_c=log_c)
+    assert got.dtype == torch.int64 and got.shape == d["x"].shape
+    assert torch.equal(got, ntt.inverse_ntt_plain(d["x"], d["view"], *sc))
+    if not scaled:
+        np.testing.assert_array_equal(to_numpy(got)[1, 0], d["golden_inv"])
 
 
 def test_kernel_shapes_default():

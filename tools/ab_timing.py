@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Compare the port's q32 keyswitch and rotate across source trees, on one GPU.
+"""Compare the port's keyswitch and rotate across source trees, on one GPU.
 
     python3 tools/ab_timing.py TREE_A TREE_B
 
@@ -8,11 +8,15 @@ parent commit unpacked with ``git archive`` into a git-ignored directory,
 and ``.``).  The trees run in turns A, B, B, A, each in a process of its
 own that builds that tree's kernels and imports that tree's
 ``tpu_fhe_torch`` and ``chip_smoke`` helpers.  Per tree and turn it prints
-one line: relinearize (a size-3 ciphertext) and rotate by one slot at the
-q32 plan's chain index 1 (N = 2^15, 60 + 30 primes of 29-30 bits), each as
-ms/op (chip_smoke's median-of-pairs marginal), its spread, and device busy
-ms per op (torch.profiler over 10 calls).  The card's name and power limit
-come first.  Needs a CUDA device; fails without one.
+one line: relinearize (a size-3 ciphertext) and rotate by one slot at chain
+index 1 of both plans -- the u64 plan (bench.py's primary configuration:
+N = 2^15, 30 + 15 primes of 50/60 bits, ``chip_smoke.BITS``/``SPECIAL``)
+and the q32 plan (N = 2^15, 60 + 30 primes of 29-30 bits,
+``chip_smoke.COMPOSITE``) -- each as ms/op (chip_smoke's median-of-pairs
+marginal), its spread, device busy ms per op (torch.profiler over 10
+calls) and whether the profiler lost events (a kernel count that is not a
+multiple of 10).  The card's name and power limit come first.  Needs a CUDA device;
+fails without one.
 """
 
 from __future__ import annotations
@@ -41,29 +45,45 @@ if not torch.cuda.is_available():
     sys.exit("needs a CUDA device")
 _build.build_all()
 n = cs.N
-ctx = FheContext(EncryptionParameters(
-    SchemeType.ckks, n, tuple(CoeffModulus.create_composite(n, **cs.COMPOSITE)),
-    special_modulus_size=cs.COMPOSITE["special_count"], composite_degree=2,
-    allow_insecure=True))
-sk = SecretKey(ctx, seed=5)
-rlk, gk = sk.relin_key(), sk.galois_key([1])
-res = cs.residue_maker(ctx.device, n, 7)
-q = ctx.level(1).mod.q
-ct3 = Ciphertext(torch.stack([res(q) for _ in range(3)]), chain_index=1, scale=cs.SCALE32)
-ct2 = Ciphertext(torch.stack([res(q) for _ in range(2)]), chain_index=1, scale=cs.SCALE32)
+plans = {
+    "u64": (EncryptionParameters(SchemeType.ckks, n, tuple(CoeffModulus.create(n, cs.BITS)),
+                                 special_modulus_size=cs.SPECIAL, allow_insecure=True),
+            cs.SCALE),
+    "q32": (EncryptionParameters(
+        SchemeType.ckks, n, tuple(CoeffModulus.create_composite(n, **cs.COMPOSITE)),
+        special_modulus_size=cs.COMPOSITE["special_count"], composite_degree=2,
+        allow_insecure=True), cs.SCALE32),
+}
+marker = torch.zeros(1, dtype=torch.int8, device="cuda")
 out = {}
-for name, fn in (("relinearize", lambda: ev.relinearize(ctx, ct3, rlk)),
-                 ("rotate", lambda: ev.rotate(ctx, ct2, 1, gk))):
-    ms, spread, _ = cs.marginal_ms(name, fn)
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(10):
-            fn()
+for plan, (params, scale) in plans.items():
+    ctx = FheContext(params)
+    sk = SecretKey(ctx, seed=5)
+    rlk, gk = sk.relin_key(), sk.galois_key([1])
+    res = cs.residue_maker(ctx.device, n, 7)
+    q = ctx.level(1).mod.q
+    ct3 = Ciphertext(torch.stack([res(q) for _ in range(3)]), chain_index=1, scale=scale)
+    ct2 = Ciphertext(torch.stack([res(q) for _ in range(2)]), chain_index=1, scale=scale)
+    out[plan] = {}
+    for name, fn in (("relinearize", lambda: ev.relinearize(ctx, ct3, rlk)),
+                     ("rotate", lambda: ev.rotate(ctx, ct2, 1, gk))):
+        ms, spread, _ = cs.marginal_ms(name, fn)
+        fn()
         torch.cuda.synchronize()
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == DeviceType.CUDA) / 1e3 / 10
-    out[name] = {"ms_per_op": ms, "spread": spread, "device_busy_ms": busy}
+        # a one-byte fill leads the window, uncounted: a profiler window after
+        # the first in a process can miss its first kernels
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            marker.fill_(1)
+            torch.cuda.synchronize()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+        device = [e for e in prof.key_averages()
+                  if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.key]
+        busy = sum(e.self_device_time_total for e in device) / 1e3 / 10
+        out[plan][name] = {"ms_per_op": ms, "spread": spread, "device_busy_ms": busy,
+                           "events_lost": any(e.count % 10 for e in device)}
+    del ctx, sk, rlk, gk, ct3, ct2
 print(json.dumps(out))
 '''
 

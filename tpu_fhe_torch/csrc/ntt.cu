@@ -10,12 +10,12 @@
 //   * _fwd_kernel32 (K4, ntt_pallas.py:801)            -> tfhe_ntt_fwd32
 //   * _fwd_sub_scale_kernel32 (K6, ntt_pallas.py:810)  -> tfhe_ntt_fwd_landing32
 //   * _inv_kernel32 (K5, ntt_pallas.py:823)            -> tfhe_ntt_inv32
-// The landing variants are the forward transform with a compile-time
-// epilogue out = (sub - pre * NTT(x)) * post mod q (pre may be null).  The
-// inverse (Gentleman-Sande) ends with x n^-1 and then, when given, x the
-// caller's per-limb Shoup scale: two lazy multiplies.  The q32 reference
-// folds scale * n^-1 into one pair instead (tpu_fhe/ops/ntt.py:300-307);
-// both land on the same canonical value.
+// The landing variants are the forward transform with an epilogue
+// out = (sub - pre * NTT(x)) * post mod q (pre may be null).  The inverse
+// (Gentleman-Sande) ends with x n^-1 and then, when given, x the caller's
+// per-limb Shoup scale: two lazy multiplies.  The q32 reference folds
+// scale * n^-1 into one pair instead (tpu_fhe/ops/ntt.py:300-307); both land
+// on the same canonical value.
 //
 // Layout: data (..., L, N) of residues, one polynomial row per limb;
 // twiddles are the key-level tables (K, N) in SEAL's bit-reversed order, so
@@ -33,43 +33,46 @@
 // on u64 and 2^16 on u32, so the TPU design (one whole limb in VMEM) does
 // not carry over.  Two designs:
 //
-// The one-launch cluster design (K1, K4 and K5): each limb is one
+// The one-launch cluster design (K1, K2, K4, K5 and K6): each limb is one
 // thread-block cluster of C blocks, each holding M = N / C words in shared
 // memory, so the limb crosses device memory once each way.  ClusterShape
 // picks C: 32 KB chunks up to 4 blocks, then larger chunks, at most 8
 // blocks (the portable cluster size), so a u64 limb at 2^17 is 8 blocks of
 // 128 KB.
-//   * Forward: block r reads the column slab [r M / C, (r + 1) M / C) of
-//     every one of the C chunks straight from device memory and runs the
-//     first log2 C stages (strides >= M) in registers, one column of C
-//     values at a time; it pushes each value into its owner's chunk over
-//     distributed shared memory (cluster.map_shared_rank), and one
-//     cluster.sync() later block r holds the contiguous chunk [r M,
-//     (r + 1) M).  The remaining stages run locally in radix-8 passes
-//     (radix-4/2 for the last one or two): a thread holds 8 elements and
-//     their twiddle pairs in registers through 3 stages, so one
-//     __syncthreads() serves 3 stages.  The last pass lands each value (the
-//     epilogue, a template hook) and stores its 8 consecutive words
-//     straight to device memory with 16-byte stores.
-//   * Inverse: the mirror.  Block r reads its contiguous chunk with 16-byte
-//     loads and runs the stages of stride 1 .. M / 2 locally, first pass
-//     straight from the loaded registers; after cluster.sync() it pulls
-//     column slab r of every peer's chunk into registers, runs the last
-//     log2 C stages (strides M .. N / 2), multiplies by n^-1 and the scale
-//     and stores C runs of M / C consecutive words.  A last cluster barrier
-//     keeps every block alive until no peer reads its chunk.
+//   * Forward (K1, K4; K6 with the landing epilogue): block r reads the
+//     column slab [r M / C, (r + 1) M / C) of every one of the C chunks
+//     straight from device memory and runs the first log2 C stages
+//     (strides >= M) in registers, one column of C values at a time; it
+//     pushes each value into its owner's chunk over distributed shared
+//     memory (cluster.map_shared_rank), and one cluster.sync() later block
+//     r holds the contiguous chunk [r M, (r + 1) M).  The remaining stages
+//     run locally in radix-8 passes (radix-4/2 for the last one or two): a
+//     thread holds 8 elements and their twiddle pairs in registers through
+//     3 stages, so one __syncthreads() serves 3 stages.  The last pass
+//     holds runs of 4 or 8 consecutive words a thread; the epilogue (a
+//     template hook, its per-limb constants read once in that pass) lands
+//     each run, the landing reading the same run of `sub` with 16-byte
+//     loads, and the run goes straight to device memory in 16-byte stores.
+//   * Inverse (K2, K5): the mirror.  Block r reads its contiguous chunk
+//     with 16-byte loads and runs the stages of stride 1 .. M / 2 locally,
+//     first pass straight from the loaded registers; after cluster.sync()
+//     it pulls column slab r of every peer's chunk into registers, runs
+//     the last log2 C stages (strides M .. N / 2), multiplies by n^-1 and
+//     the scale and stores C runs of M / C consecutive words.  A last
+//     cluster barrier keeps every block alive until no peer reads its
+//     chunk.
 //   * The ring size is a template parameter, so strides, trip counts and
 //     shared-memory offsets are compile-time constants; the rest of the
 //     index math is shifts and masks.  Shared memory carries one pad word
 //     every 32 against bank conflicts at power-of-two strides.
 //
-// The two-phase design (K2, K3 and K6, still to move onto the cluster
-// design): N = N1 * N2; one launch runs the log2(N1) stages of stride
-// >= N2 on a tile of N1 rows x 16 columns in shared memory, a second runs
-// the remaining log2(N2) stages on contiguous rows of N2 elements, plus
-// the epilogue.  Each phase reads and writes the limb once; the
-// intermediate stays in the 50 MB L2.  Twiddles are read from global
-// memory (L1/L2 cached) and there is no radix-4/8 register blocking.
+// The two-phase design (K3 alone, still to move onto the cluster design):
+// N = N1 * N2; one launch runs the log2(N1) stages of stride >= N2 on a
+// tile of N1 rows x 16 columns in shared memory, a second runs the
+// remaining log2(N2) stages on contiguous rows of N2 elements, plus the
+// landing.  Each phase reads and writes the limb once; the intermediate
+// stays in the 50 MB L2.  Twiddles are read from global memory (L1/L2
+// cached) and there is no radix-4/8 register blocking.
 
 #include <cooperative_groups.h>
 
@@ -114,7 +117,7 @@ struct Tables {
 // of different element types may not share a name).
 extern __shared__ __align__(16) unsigned char smem_raw[];
 
-// -- the two-phase transforms (K2, K3, K6) -----------------------------------
+// -- the two-phase forward landing (K3) ---------------------------------------
 
 // Column phase of the forward transform: stages m = 1 .. N1/2 (stride
 // t = N / 2m >= N2).  Block (blockIdx.x, row) owns columns
@@ -181,66 +184,7 @@ __global__ void fwd_rows(W *__restrict__ y, Tables<W> tb, const W *__restrict__ 
   }
 }
 
-// Row phase of the inverse transform (runs first): strides t = 1 .. N2/2,
-// h = N / 2t groups.  Input canonical, output in [0, 2q).
-template <typename W>
-__global__ void inv_rows(const W *__restrict__ x, W *__restrict__ y, Tables<W> tb,
-                         int L, int log_n, int log_n1) {
-  W *sm = reinterpret_cast<W *>(smem_raw);
-  const int n = 1 << log_n, n2 = n >> log_n1;
-  const int row = blockIdx.y, r = blockIdx.x;
-  const int64_t key = tb.lm[row % L];
-  const W q = tb.q[key], q2 = 2 * q;
-  const W *w = tb.w + key * n, *ws = tb.ws + key * n;
-  const size_t base = (size_t)row * n + (size_t)r * n2;
-  for (int e = threadIdx.x; e < n2; e += blockDim.x) sm[e] = x[base + e];
-  __syncthreads();
-  for (int t = 1, h = n >> 1; t < n2; t <<= 1, h >>= 1) {
-    const int groups_before = r * (n2 / (2 * t));
-    for (int k = threadIdx.x; k < (n2 >> 1); k += blockDim.x) {
-      const int il = k / t, idx = il * 2 * t + k % t;
-      const int i = h + groups_before + il;
-      inv_bfly(sm[idx], sm[idx + t], w[i], ws[i], q, q2);
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < n2; e += blockDim.x) y[base + e] = sm[e];
-}
-
-// Column phase of the inverse transform (runs second): strides
-// t = N2 .. N/2, then x n^-1 and, when scale is not null, x scale.
-template <typename W>
-__global__ void inv_cols(W *__restrict__ y, Tables<W> tb, const W *__restrict__ invn,
-                         const W *__restrict__ invn_s, const W *__restrict__ scale,
-                         const W *__restrict__ scale_s, int L, int log_n, int log_n1) {
-  W *sm = reinterpret_cast<W *>(smem_raw);
-  const int n = 1 << log_n, n1 = 1 << log_n1, n2 = n >> log_n1;
-  const int row = blockIdx.y;
-  const int limb = row % L;
-  const int64_t key = tb.lm[limb];
-  const W q = tb.q[key], q2 = 2 * q;
-  const W *w = tb.w + key * n, *ws = tb.ws + key * n;
-  const size_t base = (size_t)row * n + (size_t)blockIdx.x * kColTile;
-  for (int e = threadIdx.x; e < n1 * kColTile; e += blockDim.x)
-    sm[e] = y[base + (size_t)(e / kColTile) * n2 + e % kColTile];
-  __syncthreads();
-  for (int tt = 1, h = n1 >> 1; h >= 1; tt <<= 1, h >>= 1) {
-    for (int k = threadIdx.x; k < (n1 >> 1) * kColTile; k += blockDim.x) {
-      const int c = k % kColTile, b = k / kColTile;
-      const int i = b / tt, r = i * 2 * tt + b % tt;
-      inv_bfly(sm[r * kColTile + c], sm[(r + tt) * kColTile + c], w[h + i], ws[h + i], q, q2);
-    }
-    __syncthreads();
-  }
-  const W f = invn[key], fs = invn_s[key];
-  for (int e = threadIdx.x; e < n1 * kColTile; e += blockDim.x) {
-    W v = shoup_lazy(sm[e], f, fs, q);
-    if (scale != nullptr) v = shoup_lazy(v, scale[limb], scale_s[limb], q);
-    y[base + (size_t)(e / kColTile) * n2 + e % kColTile] = csub(v, q);
-  }
-}
-
-// -- the one-launch transforms (cluster design: K1, K4, K5) ------------------
+// -- the one-launch transforms (cluster design: K1, K2, K4, K5, K6) ----------
 
 namespace cg = cooperative_groups;
 
@@ -338,12 +282,53 @@ __device__ __forceinline__ void store_run(W *__restrict__ p, const W (&v)[K]) {
   }
 }
 
-// The plain forward transform's epilogue: [0, 4q) -> [0, q).  A landing
-// epilogue takes the limb and the element's index in `out`.
+// The forward transform's epilogues.  The kernel takes one as a parameter;
+// the last pass binds it to its limb (bind reads the per-limb constants,
+// once) and the bound form lands each run v[K] of consecutive words, whose
+// first word sits at offset `at` of the (rows, N) data, in place.
+//
+// The plain transform's: [0, 4q) -> [0, q).
 template <typename W>
 struct FinalReduce {
-  __device__ __forceinline__ W operator()(W v, W q, W q2, int /*limb*/, size_t /*idx*/) const {
-    return csub(v >= q2 ? v - q2 : v, q);
+  struct Bound {
+    W q, q2;
+    template <int K>
+    __device__ __forceinline__ void operator()(W (&v)[K], size_t /*at*/) const {
+#pragma unroll
+      for (int k = 0; k < K; ++k) v[k] = csub(v[k] >= q2 ? v[k] - q2 : v[k], q);
+    }
+  };
+  __device__ __forceinline__ Bound bind(int /*limb*/, W q, W q2) const { return {q, q2}; }
+};
+
+// The landing of moddown and rescale (K6): (sub - pre * y) * post mod q,
+// the arithmetic of fwd_rows' epilogue in the same order.  `sub` has the
+// data's layout and is read by run, 16-byte aligned; pre/pre_s may be
+// null, a runtime flag and not a second instantiation.
+template <typename W>
+struct Landing {
+  const W *sub, *post, *post_s, *pre, *pre_s;
+  struct Bound {
+    const W *sub;
+    W q, q2, post, post_s, pre, pre_s;
+    bool has_pre;
+    template <int K>
+    __device__ __forceinline__ void operator()(W (&v)[K], size_t at) const {
+      W s[K];
+      load_run<W>(sub + at, s);
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        W y = csub(v[k] >= q2 ? v[k] - q2 : v[k], q);
+        if (has_pre) y = csub(shoup_lazy(y, pre, pre_s, q), q);
+        const W d = csub(s[k] + q - y, q);
+        v[k] = csub(shoup_lazy(d, post, post_s, q), q);
+      }
+    }
+  };
+  __device__ __forceinline__ Bound bind(int limb, W q, W q2) const {
+    const bool has_pre = pre != nullptr;
+    return {sub, q, q2, __ldg(post + limb), __ldg(post_s + limb),
+            has_pre ? __ldg(pre + limb) : W(0), has_pre ? __ldg(pre_s + limb) : W(0), has_pre};
   }
 };
 
@@ -389,11 +374,12 @@ struct ClusterShape {
 
 // The forward passes of R = 3 (radix-8; 2 or 1 for the last one or two)
 // stages, from stage STAGE on, over this block's chunk (global elements
-// [rank M, (rank + 1) M)) in `buf`; the last pass lands its values through
-// `epi` into out_row.  Strides and trip counts are compile-time constants,
-// so shared-memory offsets are immediates.
+// [rank M, (rank + 1) M)) in `buf`; the last pass binds `epi` to the limb
+// and lands its runs through it into row `row0 / N` of y.  Strides and
+// trip counts are compile-time constants, so shared-memory offsets are
+// immediates.
 template <typename W, int LOG_N, int STAGE, typename Epi>
-__device__ __forceinline__ void local_passes(W *buf, W *__restrict__ out_row,
+__device__ __forceinline__ void local_passes(W *buf, W *__restrict__ y, size_t row0,
                                              const W *__restrict__ w, const W *__restrict__ ws,
                                              W q, W q2, int rank, const Epi &epi, int limb) {
   using S = ClusterShape<W, LOG_N>;
@@ -405,35 +391,41 @@ __device__ __forceinline__ void local_passes(W *buf, W *__restrict__ out_row,
   constexpr int ITERS = (S::M >> R) / S::THREADS;
   static_assert(ITERS >= 1, "a thread per radix group at least");
   const int chunk0 = rank << S::LOG_M;
+  // Each thread's ITERS radix groups: read from buf, R stages, then `put`.
+  auto pass = [&](auto put) {
 #pragma unroll
-  for (int it = 0; it < ITERS; ++it) {
-    const int qd = threadIdx.x + it * S::THREADS;
-    const int lb = ((qd >> LU) << (LU + R)) | (qd & ((1 << LU) - 1));
-    const int i = (chunk0 + lb) >> (LOG_T + 1);
-    W v[1 << R];
-    int slot[1 << R];
+    for (int it = 0; it < ITERS; ++it) {
+      const int qd = threadIdx.x + it * S::THREADS;
+      const int lb = ((qd >> LU) << (LU + R)) | (qd & ((1 << LU) - 1));
+      const int i = (chunk0 + lb) >> (LOG_T + 1);
+      W v[1 << R];
+      int slot[1 << R];
 #pragma unroll
-    for (int k = 0; k < (1 << R); ++k) {
-      if constexpr (LU >= 5)   // k 2^LU is a multiple of 32: one pad for all
-        slot[k] = pad32(lb) + k * ((1 << LU) + (1 << (LU - 5)));
-      else
-        slot[k] = pad32(lb + (k << LU));
-      v[k] = buf[slot[k]];
+      for (int k = 0; k < (1 << R); ++k) {
+        if constexpr (LU >= 5)   // k 2^LU is a multiple of 32: one pad for all
+          slot[k] = pad32(lb) + k * ((1 << LU) + (1 << (LU - 5)));
+        else
+          slot[k] = pad32(lb + (k << LU));
+        v[k] = buf[slot[k]];
+      }
+      radix_fwd<W, R>(v, w, ws, 1 << STAGE, i, q, q2);
+      put(v, slot, lb);
     }
-    radix_fwd<W, R>(v, w, ws, 1 << STAGE, i, q, q2);
-    if constexpr (LAST) {                         // LU == 0: 2^R consecutive words
-#pragma unroll
-      for (int k = 0; k < (1 << R); ++k)
-        v[k] = epi(v[k], q, q2, limb, static_cast<size_t>(chunk0 + lb + k));
-      store_run<W>(out_row + chunk0 + lb, v);
-    } else {
+  };
+  if constexpr (LAST) {                           // LU == 0: 2^R consecutive words
+    const auto land = epi.bind(limb, q, q2);
+    pass([&](W (&v)[1 << R], const int (&)[1 << R], int lb) {
+      const size_t at = row0 + chunk0 + lb;
+      land(v, at);
+      store_run<W>(y + at, v);
+    });
+  } else {
+    pass([&](W (&v)[1 << R], const int (&slot)[1 << R], int) {
 #pragma unroll
       for (int k = 0; k < (1 << R); ++k) buf[slot[k]] = v[k];
-    }
-  }
-  if constexpr (!LAST) {
+    });
     __syncthreads();
-    local_passes<W, LOG_N, STAGE + R>(buf, out_row, w, ws, q, q2, rank, epi, limb);
+    local_passes<W, LOG_N, STAGE + R>(buf, y, row0, w, ws, q, q2, rank, epi, limb);
   }
 }
 
@@ -483,7 +475,7 @@ fwd_cluster(const W *__restrict__ x, W *__restrict__ y, Tables<W> tb, Epi epi) {
     for (int it = 0; it < S::M / T; ++it) buf[pad32(threadIdx.x + it * T)] = src[threadIdx.x + it * T];
     __syncthreads();
   }
-  local_passes<W, LOG_N, LOG_C>(buf, y + row * N, w, ws, q, q2, rank, epi, limb);
+  local_passes<W, LOG_N, LOG_C>(buf, y, row * N, w, ws, q, q2, rank, epi, limb);
 }
 
 // The inverse passes over this block's chunk: strides 2^LOG_T .. M / 2 in
@@ -631,7 +623,8 @@ int with_log_n(int log_n, F &&f) {
 
 bool bad_rows(int rows, int L) { return L <= 0 || rows % L != 0 || rows / L > 65535 || L > 65535; }
 
-// x, out: (rows, N) with rows = batch * L; out may not alias x.
+// x, out: (rows, N) with rows = batch * L; out may not alias x.  A landing
+// epilogue's `sub` has their layout and is 16-byte aligned.
 template <typename W, typename Epi>
 int ntt_fwd_cluster(const W *x, W *out, const W *roots, const W *roots_s, const W *q,
                     const int64_t *limb_map, int rows, int L, int log_n, Epi epi,
@@ -664,8 +657,8 @@ int ntt_inv_cluster(const W *x, W *out, const W *inv_roots, const W *inv_roots_s
 
 int split(int log_n) { return log_n / 2; }
 
-// The two-phase forward landing.  x, out: (rows, N) with rows = (...) * L;
-// out may not alias x; pre/pre_s may be null.
+// The two-phase forward landing (K3).  x, out: (rows, N) with
+// rows = (...) * L; out may not alias x; pre/pre_s may be null.
 template <typename W>
 int ntt_fwd_landing_impl(const W *x, W *out, const W *sub, const W *roots, const W *roots_s,
                          const W *q, const int64_t *limb_map, const W *post, const W *post_s,
@@ -682,21 +675,6 @@ int ntt_fwd_landing_impl(const W *x, W *out, const W *sub, const W *roots, const
   return static_cast<int>(cudaGetLastError());
 }
 
-// The two-phase inverse (K2).
-template <typename W>
-int ntt_inv_impl(const W *x, W *out, const W *inv_roots, const W *inv_roots_s, const W *q,
-                 const int64_t *limb_map, const W *invn, const W *invn_s, const W *scale,
-                 const W *scale_s, int rows, int L, int log_n, void *stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int log_n1 = split(log_n), n1 = 1 << log_n1, n2 = 1 << (log_n - log_n1);
-  const Tables<W> tb{inv_roots, inv_roots_s, q, limb_map};
-  const int threads = n2 / 2 < 256 ? n2 / 2 : 256;
-  inv_rows<W><<<dim3(n1, rows), threads, n2 * sizeof(W), s>>>(x, out, tb, L, log_n, log_n1);
-  inv_cols<W><<<dim3(n2 / kColTile, rows), kColThreads, n1 * kColTile * sizeof(W), s>>>(
-      out, tb, invn, invn_s, scale, scale_s, L, log_n, log_n1);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -708,6 +686,7 @@ int tfhe_ntt_fwd(const u64 *x, u64 *out, const u64 *roots, const u64 *roots_s, c
                               FinalReduce<u64>{}, stream);
 }
 
+// K3: the two-phase transform.
 int tfhe_ntt_fwd_landing(const u64 *x, const u64 *sub, u64 *out, const u64 *roots,
                          const u64 *roots_s, const u64 *q, const int64_t *limb_map,
                          const u64 *post, const u64 *post_s, const u64 *pre,
@@ -716,13 +695,14 @@ int tfhe_ntt_fwd_landing(const u64 *x, const u64 *sub, u64 *out, const u64 *root
                                    pre_s, rows, L, log_n, stream);
 }
 
+// K2: the one-launch cluster transform; x must be 16-byte aligned.
 // scale/scale_s (L,) may be null: the transform then ends with n^-1 only.
 int tfhe_ntt_inv(const u64 *x, u64 *out, const u64 *inv_roots, const u64 *inv_roots_s,
                  const u64 *q, const int64_t *limb_map, const u64 *invn, const u64 *invn_s,
                  const u64 *scale, const u64 *scale_s, int rows, int L, int log_n,
                  void *stream) {
-  return ntt_inv_impl<u64>(x, out, inv_roots, inv_roots_s, q, limb_map, invn, invn_s, scale,
-                           scale_s, rows, L, log_n, stream);
+  return ntt_inv_cluster<u64>(x, out, inv_roots, inv_roots_s, q, limb_map, invn, invn_s, scale,
+                              scale_s, rows, L, log_n, stream);
 }
 
 // The q32 entry points take the same arguments as single u32 words.
@@ -733,12 +713,14 @@ int tfhe_ntt_fwd32(const u32 *x, u32 *out, const u32 *roots, const u32 *roots_s,
                               FinalReduce<u32>{}, stream);
 }
 
+// K6: K4's transform with the landing as its epilogue; sub must be 16-byte
+// aligned.
 int tfhe_ntt_fwd_landing32(const u32 *x, const u32 *sub, u32 *out, const u32 *roots,
                            const u32 *roots_s, const u32 *q, const int64_t *limb_map,
                            const u32 *post, const u32 *post_s, const u32 *pre,
                            const u32 *pre_s, int rows, int L, int log_n, void *stream) {
-  return ntt_fwd_landing_impl<u32>(x, out, sub, roots, roots_s, q, limb_map, post, post_s, pre,
-                                   pre_s, rows, L, log_n, stream);
+  return ntt_fwd_cluster<u32>(x, out, roots, roots_s, q, limb_map, rows, L, log_n,
+                              Landing<u32>{sub, post, post_s, pre, pre_s}, stream);
 }
 
 // K5: the one-launch cluster transform; x must be 16-byte aligned.
