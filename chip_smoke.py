@@ -28,11 +28,14 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     and K5 (scaled) on 59 limbs of 30 bits and K6 on 2 rows of them; a
     profile of 10 calls of each cluster NTT on the path at 2^15 that must
     see that one device kernel alone (u64: K1 at (30, 2^15) fwd_cluster,
-    K2 at (30, 2^15) scaled inv_cluster; q32: K5 at (59, 2^15) scaled
-    inv_cluster, K6 at (2, 59, 2^15) fwd_cluster with the Landing
-    epilogue); on the q32 plan also K4 and K5 against K1 and K2 on the
-    same 30-bit moduli, and torch._int_mm on bconv32's int8 operands as a
-    yardstick of its product part;
+    K2 at (30, 2^15) scaled inv_cluster, K3 at (2, 30, 2^15) fwd_cluster
+    with the Landing epilogue; q32: K5 at (59, 2^15) scaled inv_cluster,
+    K6 at (2, 59, 2^15) fwd_cluster with the Landing epilogue; a profile
+    that lost events is taken again, up to 3 in all); on the u64
+    plan K11 (the SIMT kernel, off the path since K12 takes k < 64) at 64
+    -> 30 and, called directly, at 15 -> 30; on the q32 plan also K4 and
+    K5 against K1 and K2 on the same 30-bit moduli, and torch._int_mm on
+    bconv32's int8 operands as a yardstick of its product part;
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
@@ -44,8 +47,7 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     size-3 ciphertext, bench.py's median-of-pairs marginal), launches per
     relinearize, and a device-only torch.profiler window of 10
     relinearizes: kernel time by name and the device's busy share (no
-    two-phase NTT kernel may appear on the q32 plan, and no two-phase
-    inverse on the u64 plan: only K3 runs two-phase);
+    two-phase NTT kernel may appear on either plan);
  6. rotations: Galois keys for steps 1, 2, 4, -1 and conjugation (no
     Shoup words, so the inner product is K7 on the u64 plan and K9 on the
     q32 plan), then 2 requests of encode -> encrypt -> rotate by 1, 2, -1
@@ -86,10 +88,9 @@ ROT_REQUESTS = 2
 ROT_STEPS = [1, 2, 4, -1]                # Galois keys (and conjugation)
 HOIST_STEPS = (0, 1, 2, 4)
 TOL = 1e-6
-# Two-phase NTT kernels that a plan's profiles must not show: K3 (u64) is
-# the last user of fwd_cols/fwd_rows, and no kernel runs inv_rows/inv_cols
-TWO_PHASE = {"q32": ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols"),
-             "u64": ("inv_rows", "inv_cols")}
+# The two-phase NTT kernels of earlier designs: a profile of either plan
+# that shows one fails the run (every transform is one cluster launch)
+TWO_PHASE = ("fwd_cols", "fwd_rows", "inv_rows", "inv_cols")
 HBM_BYTES_PER_S = 3.35e12                # H100 SXM device memory
 # 32-bit integer multiply-add rate: Hopper issues 64 IMAD per SM and clock
 # (against 128 FFMA; NVIDIA's arithmetic-instruction throughput table for
@@ -287,6 +288,22 @@ def ntt_cost(word: int, rows: int, limbs: int, extra_muls: int = 0, tables: int 
     return nbytes, imads
 
 
+def simt_bconv(s, table, p, ratio_lo, ratio_hi):
+    """K11's kernel at any k, called directly (the wrapper takes K12 for
+    k < 64): s (k, N) int64 residues, the table (m, k) and p and its Barrett
+    words (m, 1), all on the card."""
+    import torch
+
+    from tpu_fhe_torch.ops import bconv
+    from tpu_fhe_torch.ops._build import ptr
+
+    (k, n), m = s.shape, table.shape[0]
+    out = torch.empty((m, n), dtype=torch.int64, device=s.device)
+    bconv.BCONV(ptr(s), ptr(out), *(ptr(c.contiguous()) for c in (table, p, ratio_lo, ratio_hi)),
+                1, k, m, n)
+    return out
+
+
 def int_mm_yardstick(k: int, m: int, card: str) -> None:
     """Time torch._int_mm on the operands of bconv32's int8 product at
     k -> m: (7 m_pad, 4 k) @ (4 k, N), m_pad = m rounded up to 8.  Only a
@@ -335,8 +352,8 @@ def u64_slice(card: str) -> list:
     residues = residue_maker(ctx.device, N, 2024)
 
     # -- 3. kernels against their plain versions ---------------------------
-    ck = Checker([ntt.NTT_FWD, ntt.NTT_FWD_LANDING, ntt.NTT_INV, bconv.BCONV, ks.KS_SHOUP,
-                  ks.KS])
+    ck = Checker([ntt.NTT_FWD, ntt.NTT_FWD_LANDING, ntt.NTT_INV, bconv.BCONV_MXU, bconv.BCONV,
+                  ks.KS_SHOUP, ks.KS])
     L = level.size                                      # 30
     P = kst.p_ntt.num_limbs                             # 15
     dig = kst.digits[0]
@@ -376,6 +393,9 @@ def u64_slice(card: str) -> list:
              lambda: ntt.forward_ntt_sub_scale_plain(xs, sub, level.ntt, *args),
              8 * N * (3 * 2 * L + 2 * L), ntt_cost(8, 2 * L, L, extra_muls=1)[1],
              headline=True)
+    one_launch("ntt_fwd_landing (2, 30, 2^15)",
+               lambda: ntt.forward_ntt_sub_scale(xs, sub, level.ntt, *args),
+               ("fwd_cluster", "Landing"))
     scale = (kst.part_qhatinv, kst.part_qhatinv_shoup)
     ck.check("ntt_inv", "(30, 2^15) scaled",
              lambda: ntt.inverse_ntt_scaled(x, level.ntt, *scale),
@@ -390,15 +410,30 @@ def u64_slice(card: str) -> list:
              lambda: ntt.inverse_ntt_plain(xp, kst.p_ntt, *pscale),
              *ntt_cost(8, 2 * P, P, extra_muls=2))
     s = residues(level.mod.q[dig.start:dig.end])
-    btab = (dig.qhat_mod_p, dig.comp_mod.q, dig.comp_mod.ratio_lo, dig.comp_mod.ratio_hi)
+    btab = (dig.qhat_mod_p, dig.comp_mod.q, dig.comp_mod.ratio_lo, dig.comp_mod.ratio_hi,
+            dig.qhat_mod_p_diag)
     k_in, m_out = dig.end - dig.start, dig.comp_mod.q.shape[0]
-    ck.check("bconv", "15 -> 30, (15, 2^15)", lambda: bconv.bconv_matmul(s, *btab),
+    ck.check("bconv_mxu", "15 -> 30, (15, 2^15)", lambda: bconv.bconv_matmul(s, *btab),
              lambda: bconv.bconv_matmul_plain(s, *btab), **bconv_cost(8, 1, k_in, m_out),
              headline=True)
     s2 = residues(kst.p_mod.q, 2)
-    mtab = (kst.p_hat_mod_q, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi)
-    ck.check("bconv", "15 -> 30, (2, 15, 2^15)", lambda: bconv.bconv_matmul(s2, *mtab),
+    mtab = (kst.p_hat_mod_q, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi,
+            kst.p_hat_mod_q_diag)
+    ck.check("bconv_mxu", "15 -> 30, (2, 15, 2^15)", lambda: bconv.bconv_matmul(s2, *mtab),
              lambda: bconv.bconv_matmul_plain(s2, *mtab), **bconv_cost(8, 2, P, L))
+    # K11, the SIMT kernel: the wrapper's choice from k = 64 inputs on (the
+    # key level's 45 moduli and 19 of them again, into the level's 30),
+    # and at the path's 15 -> 30 through a direct call
+    s64 = residues(torch.cat([ctx.key_level.mod.q] * 2)[:64])
+    gen = torch.Generator(device=ctx.device).manual_seed(64)
+    wide = torch.randint(0, 1 << 62, (L, 64), generator=gen, dtype=torch.int64,
+                         device=ctx.device) % level.mod.q
+    wtab = (wide, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi)
+    ck.check("bconv", "64 -> 30, (64, 2^15)", lambda: bconv.bconv_matmul(s64, *wtab),
+             lambda: bconv.bconv_matmul_plain(s64, *wtab), **bconv_cost(8, 1, 64, L))
+    ck.check("bconv", "15 -> 30, (15, 2^15), direct call",
+             lambda: simt_bconv(s, *btab[:4]), lambda: bconv.bconv_matmul_plain(s, *btab),
+             **bconv_cost(8, 1, k_in, m_out), headline=True)
     beta = kst.beta
     qlp = kst.qlp_mod
     t = residues(qlp.q, beta)
@@ -421,12 +456,12 @@ def u64_slice(card: str) -> list:
              lambda: ks.key_inner_prod_plain(t, gkey, *kargs),
              8 * N * (beta * (L + P) + 2 * beta * (L + P) + 2 * (L + P)),
              2 * (L + P) * N * (2 * beta + 6) * IMAD_PER_MUL64, headline=True)
-    del x, x2, sub, xs, xp, s, s2, t, evk, evk_s, gkey
+    del x, x2, sub, xs, xp, s, s2, s64, wide, t, evk, evk_s, gkey
 
     # -- 4. the slice: keys, then REQUESTS requests ---------------------
     launches, products, rlk, sk = run_requests("u64", ctx, ck, SCALE,
                                                lambda c: ev.rescale_to_next(ctx, c),
-                                               off_path=("key_inner_prod",))
+                                               off_path=("key_inner_prod", "bconv"))
     same_as_plain("u64", "relinearize", ck, lambda: [ev.relinearize(ctx, products[0], rlk)])
 
     # -- 5. keyswitch timing ----------------------------------------------
@@ -436,8 +471,8 @@ def u64_slice(card: str) -> list:
     del ct3, products
 
     # -- 6. rotations -----------------------------------------------------
-    rot = rotation_phase("u64", ctx, ck, sk, SCALE, keep=2, off_path=("key_inner_prod_shoup",),
-                         card=card)
+    rot = rotation_phase("u64", ctx, ck, sk, SCALE, keep=2,
+                         off_path=("key_inner_prod_shoup", "bconv"), card=card)
     return ck.line({name: launches[name] + rot[name] for name in launches})
 
 
@@ -781,16 +816,20 @@ def profile_ops(tag: str, fn, what: str, reps: int = 10) -> None:
     for e in sorted(device, key=lambda e: -e.self_device_time_total):
         log(f"[{tag} profile]   {e.self_device_time_total / 1e3 / reps:.4f} ms/{what}  "
             f"{e.count / reps:g} calls  {e.key[:90]}")
-    ran = sorted({k for e in device for k in TWO_PHASE[tag] if k in e.key})
+    ran = sorted({k for e in device for k in TWO_PHASE if k in e.key})
     if ran:
-        fail(f"{tag} {what}: two-phase NTT kernels ran ({', '.join(ran)}); the plan's "
-             "transforms but K3 are one cluster launch")
+        fail(f"{tag} {what}: two-phase NTT kernels ran ({', '.join(ran)}); every "
+             "transform is one cluster launch")
 
 
-def one_launch(what: str, fn, names: tuple, reps: int = 10) -> None:
+def one_launch(what: str, fn, names: tuple, reps: int = 10, windows: int = 3) -> None:
     """A profile of `reps` calls of `fn` sees exactly one device kernel,
     whose name holds every one of `names`, `reps` times: the
-    one-cluster-launch transform, not the two-phase pair."""
+    one-cluster-launch transform, not the two-phase pair.  The profiler can
+    drop events in a long process (seen on the H100: 9 of 10 launches of one
+    kernel), so a window that sees that kernel alone but fewer times is
+    taken again, up to `windows` in all; a window that sees any other
+    kernel, or more launches, fails at once."""
     import torch
 
     fn()
@@ -801,10 +840,19 @@ def one_launch(what: str, fn, names: tuple, reps: int = 10) -> None:
             fn()
         torch.cuda.synchronize()
 
-    seen = [(e.key, e.count) for e in device_kernels(run)]
-    if len(seen) != 1 or seen[0][1] != reps or not all(k in seen[0][0] for k in names):
-        fail(f"{what}: expected {reps} launches of {' '.join(names)} alone, the profile "
-             f"saw {seen}")
+    for window in range(1, windows + 1):
+        seen = [(e.key, e.count) for e in device_kernels(run)]
+        alone = len(seen) == 1 and all(k in seen[0][0] for k in names)
+        if not alone or seen[0][1] > reps:
+            fail(f"{what}: expected {reps} launches of {' '.join(names)} alone, the "
+                 f"profile saw {seen}")
+        if seen[0][1] == reps:
+            break
+        log(f"[one launch] {what}: window {window} saw {seen[0][1]} of {reps} launches "
+            "(the profiler lost events)")
+    else:
+        fail(f"{what}: expected {reps} launches of {' '.join(names)}; {windows} profiles "
+             f"each lost events, the last saw {seen}")
     log(f"[one launch] {what}: {' '.join(names)}, {reps} calls, {reps} launches")
 
 

@@ -1,8 +1,9 @@
 """The port's CUDA kernels against their plain torch versions, on the card:
-the u64 plan's (K1-K3, K7, K8, K11) on a 50/60-bit chain, the q32 plan's
-(K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, the
-one-cluster-launch transforms (K1, K2, K4, K5, K6) at every ring size from
-2^10 to 2^17, and each slice
+the u64 plan's (K1-K3, K7, K8, K11, K12) on a 50/60-bit chain, the q32
+plan's (K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, the
+one-cluster-launch transforms (K1-K6) at every ring size from 2^10 to
+2^17, the tensor-core base conversions (K12, K13) over their ranges of
+inputs and outputs, and each slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum)
 on the card against the same slice on the CPU.
 
@@ -87,7 +88,8 @@ def test_bconv_and_inner_product_equal_plain(ctx):
     kst = level.ks
     for dt in kst.digits:
         s = _res(ctx, level.mod.q[dt.start:dt.end], 2)
-        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.ratio_lo, dt.comp_mod.ratio_hi)
+        tab = (dt.qhat_mod_p, dt.comp_mod.q, dt.comp_mod.ratio_lo, dt.comp_mod.ratio_hi,
+               dt.qhat_mod_p_diag)
         assert torch.equal(bconv.bconv_matmul(s, *tab), bconv.bconv_matmul_plain(s, *tab))
     kq = ctx.key_level.mod
     evk = _res(ctx, kq.q, 3, 2)
@@ -510,10 +512,125 @@ def test_ntt_inv_cluster_2_17_full_width(gpu):
     assert torch.equal(ntt.inverse_ntt_scaled(x, t, *sc), ntt.inverse_ntt_plain(x, t, *sc))
 
 
+# -- K3 as one cluster launch per limb, K12 on the tensor cores -------------
+
+def _scale64(gpu, q, seed):
+    """A per-limb constant and its Shoup word for moduli q (L, 1)."""
+    s = _res(_Dev(gpu, 1), q, seed=seed).reshape(-1)
+    return s, _shoup64(s, q.reshape(-1))
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 14, 15, 16, 17])
+def test_ntt_fwd_landing_cluster_equals_plain(gpu, log_n):
+    """K3 (K1's launch with the landing epilogue) against its plain version
+    with and without pre, with 2 x L rows: moddown's shape (every limb of a
+    level), rescale's (the level's limbs but the last), and a digit
+    complement (a non-identity limb_map)."""
+    n = 1 << log_n
+    qs = [m.value for m in CoeffModulus.create(n, _BITS64)]
+    key = build_device_ntt_tables([make_ntt_tables(log_n, q) for q in qs], gpu)
+    for idx in (list(range(6)), [0, 1, 2, 3, 4], [4, 1, 3]):
+        view = key.slice_limbs(idx)
+        x = _res(_Dev(gpu, n), view.q, 2, seed=log_n)
+        sub = _res(_Dev(gpu, n), view.q, 2, seed=log_n + 1)
+        post = _scale64(gpu, view.q, log_n + 2)
+        for pre in ((None, None), _scale64(gpu, view.q, log_n + 3)):
+            assert torch.equal(ntt.forward_ntt_sub_scale(x, sub, view, *post, *pre),
+                               ntt.forward_ntt_sub_scale_plain(x, sub, view, *post, *pre))
+
+
+def test_ntt_fwd_landing_full_width(gpu):
+    """K3 at moddown's full-width shape on the u64 plan: (2, 30, 2^15), 240
+    blocks of 64 KB, with and without pre."""
+    n = 1 << 15
+    qs = [m.value for m in CoeffModulus.create(n, [60] + [50] * 29)]
+    t = build_device_ntt_tables([make_ntt_tables(15, q) for q in qs], gpu)
+    x = _res(_Dev(gpu, n), t.q, 2, seed=15)
+    sub = _res(_Dev(gpu, n), t.q, 2, seed=16)
+    post = _scale64(gpu, t.q, 17)
+    for pre in ((None, None), _scale64(gpu, t.q, 18)):
+        assert torch.equal(ntt.forward_ntt_sub_scale(x, sub, t, *post, *pre),
+                           ntt.forward_ntt_sub_scale_plain(x, sub, t, *post, *pre))
+
+
+def _bconv64_case(gpu, k: int, m: int, seed: int, worst: bool = False):
+    """Random (or worst-case) u64 base-conversion tables k -> m on 60-bit
+    moduli: (table, p, ratio_lo, ratio_hi) and the input moduli (k, 1)."""
+    q_in, q_out = (CoeffModulus.create(1 << 10, [60] * c) for c in (k, m))
+    p, rlo, rhi = (mm.u64_tensor(np.array([[f(mo)] for mo in q_out], dtype=np.uint64), gpu)
+                   for f in (lambda mo: mo.value, lambda mo: mo.const_ratio[0],
+                             lambda mo: mo.const_ratio[1]))
+    qi = mm.u64_tensor(np.array([[mo.value] for mo in q_in], dtype=np.uint64), gpu)
+    if worst:
+        table = (p - 1).expand(m, k).contiguous()
+    else:
+        g = torch.Generator(device=gpu).manual_seed(seed)
+        table = torch.randint(0, 1 << 62, (m, k), generator=g, dtype=torch.int64,
+                              device=gpu) % p
+    return (table, p, rlo, rhi), qi
+
+
+@pytest.mark.parametrize("m", [1, 16, 30, 45])
+@pytest.mark.parametrize("k", [1, 15, 32, 63])
+def test_bconv_tensor_core_equals_plain(gpu, k, m):
+    """K12's int8 tensor-core kernel against its plain version: k inputs
+    (1 to 4 K steps of 16, ragged) into m outputs (odd m leaves part of an
+    M tile), batch 1 and 2, at N = 2^15 and ragged N = 1000 and 999; every launch
+    is K12's."""
+    tab, qi = _bconv64_case(gpu, k, m, 100 * k + m)
+    diag = bconv.digit_matrix(tab[0])
+    g = torch.Generator(device=gpu).manual_seed(k + m)
+    for lead, n in (((), 1 << 15), ((2,), 1 << 15), ((2,), 1000), ((1,), 999)):
+        s = torch.randint(0, 1 << 62, lead + (k, n), generator=g, dtype=torch.int64,
+                          device=gpu) % qi
+        bconv.BCONV_MXU.launches = bconv.BCONV.launches = 0
+        got = bconv.bconv_matmul(s, *tab, diag)
+        assert (bconv.BCONV_MXU.launches, bconv.BCONV.launches) == (1, 0)
+        assert torch.equal(got, bconv.bconv_matmul_plain(s, *tab))
+
+
+def test_bconv_tensor_core_worst_case(gpu):
+    """K12 at its bound: 63 inputs of 60-bit moduli each at q - 1, every
+    table entry at p - 1 (a row sum near 63 2^120), batch 2."""
+    k, m = 63, 30
+    tab, qi = _bconv64_case(gpu, k, m, 0, worst=True)
+    s = (qi - 1).expand(2, k, 1 << 12).contiguous()
+    got = bconv.bconv_matmul(s, *tab, bconv.digit_matrix(tab[0]))
+    assert torch.equal(got, bconv.bconv_matmul_plain(s, *tab))
+
+
+def test_bconv_k64_goes_to_simt_kernel(gpu):
+    """At k = 64 (beyond K12's 128-bit bound) the wrapper launches K11's
+    kernel, exact, with or without a digit matrix."""
+    k, m = 64, 7
+    tab, qi = _bconv64_case(gpu, k, m, 64)
+    g = torch.Generator(device=gpu).manual_seed(64)
+    s = torch.randint(0, 1 << 62, (2, k, 1 << 12), generator=g, dtype=torch.int64,
+                      device=gpu) % qi
+    bconv.BCONV_MXU.launches = bconv.BCONV.launches = 0
+    for diag in (None, bconv.digit_matrix(tab[0])):
+        assert torch.equal(bconv.bconv_matmul(s, *tab, diag), bconv.bconv_matmul_plain(s, *tab))
+    assert (bconv.BCONV_MXU.launches, bconv.BCONV.launches) == (0, 2)
+
+
+def test_bconv_refuses_missing_digit_matrix(gpu):
+    """On a CUDA tensor with k < 64, bconv_matmul raises without the
+    table's digit matrix (or with one of another table, or on the CPU): it
+    never gives way to K11 or to the plain version."""
+    k, m = 15, 30
+    tab, qi = _bconv64_case(gpu, k, m, 1)
+    s = _res(_Dev(gpu, 1 << 10), qi)
+    for diag in (None, bconv.digit_matrix(tab[0][:16].contiguous()),
+                 bconv.digit_matrix(tab[0]).cpu()):
+        with pytest.raises(ValueError, match="digit matrix"):
+            bconv.bconv_matmul(s, *tab, diag)
+
+
 def test_cluster_transforms_are_one_launch(gpu):
-    """A profile of one call of K1 (u64), K2 (u64, scaled), K5 (q32,
-    scaled) and K6 (q32, with pre) at 2^15 sees one device kernel each:
-    the cluster kernel, K6's with the landing epilogue."""
+    """A profile of one call of K1 (u64), K2 (u64, scaled), K3 (u64, with
+    pre), K5 (q32, scaled) and K6 (q32, with pre) at 2^15 sees one device
+    kernel each: the cluster kernel, K3's and K6's with the landing
+    epilogue."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -528,8 +645,11 @@ def test_cluster_transforms_are_one_launch(gpu):
     ss = mm.shoup32_of(s, t32.q.reshape(-1))
     s64 = x64[:, 0].contiguous()
     ss64 = _shoup64(s64, t64.q.reshape(-1))
+    sub64 = _res(_Dev(gpu, n), t64.q, seed=4)
     for fn, names in ((lambda: ntt.forward_ntt(x64, t64), ("fwd_cluster",)),
                       (lambda: ntt.inverse_ntt_scaled(x64, t64, s64, ss64), ("inv_cluster",)),
+                      (lambda: ntt.forward_ntt_sub_scale(x64, sub64, t64, s64, ss64, s64, ss64),
+                       ("fwd_cluster", "Landing")),
                       (lambda: ntt.inverse_ntt_scaled(x32, t32, s, ss), ("inv_cluster",)),
                       (lambda: ntt.forward_ntt_sub_scale(x32, sub32, t32, s, ss, s, ss),
                        ("fwd_cluster", "Landing"))):
@@ -544,8 +664,8 @@ def test_cluster_transforms_are_one_launch(gpu):
 
 
 def test_cluster_wrappers_refuse_misaligned_input(gpu):
-    """K6 reads `sub` and K2 its data in 16-byte runs: the wrappers raise
-    on a tensor that is not 16-byte aligned."""
+    """K3 and K6 read `sub` and K2 its data in 16-byte runs: the wrappers
+    raise on a tensor that is not 16-byte aligned."""
     n = 1 << 10
     t32 = build_device_ntt_tables([make_ntt_tables(10, q) for q in _primes30(n, 2)], gpu,
                                   q32=True)
@@ -559,6 +679,10 @@ def test_cluster_wrappers_refuse_misaligned_input(gpu):
     flat64 = torch.zeros(2 * n + 1, dtype=torch.int64, device=gpu)
     with pytest.raises(ValueError, match="16-byte"):
         ntt.inverse_ntt(flat64[1:].reshape(2, n), t64)
+    x64 = _res(_Dev(gpu, n), t64.q, seed=2)
+    post64 = _scale64(gpu, t64.q, 3)
+    with pytest.raises(ValueError, match="16-byte"):
+        ntt.forward_ntt_sub_scale(x64, flat64[1:].reshape(2, n), t64, *post64)
 
 
 def test_cluster_shape_matches_cpu_model(gpu):

@@ -1,6 +1,7 @@
 """The one-launch cluster NTT kernels' schedules, carried out in torch on the
-CPU: the index arithmetic of ``fwd_cluster`` (K1 on u64 words, K4) and
-``inv_cluster`` (K5 on q32 words) in tpu_fhe_torch/csrc/ntt.cu.
+CPU: the index arithmetic of ``fwd_cluster`` (K1 and K3 on u64 words, K4
+and K6 on q32 words) and ``inv_cluster`` (K2, K5) in
+tpu_fhe_torch/csrc/ntt.cu.
 
 The model follows the kernels step by step, vectorised over the blocks of a
 cluster and the threads of a block: chunking (C blocks of M words, shared
@@ -370,6 +371,24 @@ def test_forward_landing_push_schedule_q32(ring, log_c, with_pre):
     args = (d["sub"], *d["post"], *pre)
     got = cluster_forward(d["x"], d["view"], log_c, land=args)
     assert got.dtype == torch.int32 and got.shape == d["x"].shape
+    assert torch.equal(got, ntt.forward_ntt_sub_scale_plain(d["x"], d["sub"], d["view"], *args[1:]))
+    q = d["q0"]
+    post, pre_v = int(d["post"][0][0]), int(d["pre"][0][0]) if with_pre else 1
+    want = [(int(s) - pre_v * int(y)) * post % q for s, y in zip(d["sub_row"], d["golden_fwd"])]
+    np.testing.assert_array_equal(to_numpy(got)[1, 0], np.array(want, dtype=np.uint64))
+
+
+@pytest.mark.parametrize("with_pre", [False, True])
+@pytest.mark.parametrize("log_c", [0, 1, 2, 3])
+def test_forward_landing_push_schedule_u64(ring, log_c, with_pre):
+    """K3: the push schedule on u64 words with the Landing epilogue, with
+    and without pre; on row (1, 0) the reference's golden forward
+    transform followed by the landing in plain Python."""
+    d = ring[8]
+    pre = d["pre"] if with_pre else (None, None)
+    args = (d["sub"], *d["post"], *pre)
+    got = cluster_forward(d["x"], d["view"], log_c, land=args)
+    assert got.dtype == torch.int64 and got.shape == d["x"].shape
     assert torch.equal(got, ntt.forward_ntt_sub_scale_plain(d["x"], d["sub"], d["view"], *args[1:]))
     q = d["q0"]
     post, pre_v = int(d["post"][0][0]), int(d["pre"][0][0]) if with_pre else 1

@@ -31,15 +31,13 @@
 // stages of a few word multiplies per element pair, and a limb (4 N or 8 N
 // bytes) is larger than one block's 227 KB of shared memory from N = 2^15
 // on u64 and 2^16 on u32, so the TPU design (one whole limb in VMEM) does
-// not carry over.  Two designs:
-//
-// The one-launch cluster design (K1, K2, K4, K5 and K6): each limb is one
-// thread-block cluster of C blocks, each holding M = N / C words in shared
-// memory, so the limb crosses device memory once each way.  ClusterShape
-// picks C: 32 KB chunks up to 4 blocks, then larger chunks, at most 8
-// blocks (the portable cluster size), so a u64 limb at 2^17 is 8 blocks of
-// 128 KB.
-//   * Forward (K1, K4; K6 with the landing epilogue): block r reads the
+// not carry over.  Every transform is one launch of the cluster design:
+// each limb is one thread-block cluster of C blocks, each holding M = N / C
+// words in shared memory, so the limb crosses device memory once each
+// way.  ClusterShape picks C: 32 KB chunks up to 4 blocks, then larger
+// chunks, at most 8 blocks (the portable cluster size), so a u64 limb at
+// 2^17 is 8 blocks of 128 KB.
+//   * Forward (K1, K4; K3, K6 with the landing epilogue): block r reads the
 //     column slab [r M / C, (r + 1) M / C) of every one of the C chunks
 //     straight from device memory and runs the first log2 C stages
 //     (strides >= M) in registers, one column of C values at a time; it
@@ -65,14 +63,6 @@
 //     shared-memory offsets are compile-time constants; the rest of the
 //     index math is shifts and masks.  Shared memory carries one pad word
 //     every 32 against bank conflicts at power-of-two strides.
-//
-// The two-phase design (K3 alone, still to move onto the cluster design):
-// N = N1 * N2; one launch runs the log2(N1) stages of stride >= N2 on a
-// tile of N1 rows x 16 columns in shared memory, a second runs the
-// remaining log2(N2) stages on contiguous rows of N2 elements, plus the
-// landing.  Each phase reads and writes the limb once; the intermediate
-// stays in the 50 MB L2.  Twiddles are read from global memory (L1/L2
-// cached) and there is no radix-4/8 register blocking.
 
 #include <cooperative_groups.h>
 
@@ -82,9 +72,6 @@
 #include "modarith.cuh"
 
 namespace {
-
-constexpr int kColTile = 16;       // columns per block in the column phase
-constexpr int kColThreads = 256;
 
 // Harvey forward (Cooley-Tukey) butterfly: x, y in [0, 4q) -> [0, 4q).
 template <typename W>
@@ -117,74 +104,7 @@ struct Tables {
 // of different element types may not share a name).
 extern __shared__ __align__(16) unsigned char smem_raw[];
 
-// -- the two-phase forward landing (K3) ---------------------------------------
-
-// Column phase of the forward transform: stages m = 1 .. N1/2 (stride
-// t = N / 2m >= N2).  Block (blockIdx.x, row) owns columns
-// [16 * blockIdx.x, +16) of row `row`, viewed as an N1 x N2 matrix.
-template <typename W>
-__global__ void fwd_cols(const W *__restrict__ x, W *__restrict__ y, Tables<W> tb,
-                         int L, int log_n, int log_n1) {
-  W *sm = reinterpret_cast<W *>(smem_raw);
-  const int n = 1 << log_n, n1 = 1 << log_n1, n2 = n >> log_n1;
-  const int row = blockIdx.y;
-  const int64_t key = tb.lm[row % L];
-  const W q = tb.q[key], q2 = 2 * q;
-  const W *w = tb.w + key * n, *ws = tb.ws + key * n;
-  const size_t base = (size_t)row * n + (size_t)blockIdx.x * kColTile;
-  for (int e = threadIdx.x; e < n1 * kColTile; e += blockDim.x)
-    sm[e] = x[base + (size_t)(e / kColTile) * n2 + e % kColTile];
-  __syncthreads();
-  for (int m = 1, tt = n1 >> 1; m < n1; m <<= 1, tt >>= 1) {
-    for (int k = threadIdx.x; k < (n1 >> 1) * kColTile; k += blockDim.x) {
-      const int c = k % kColTile, b = k / kColTile;
-      const int i = b / tt, r = i * 2 * tt + b % tt;
-      fwd_bfly(sm[r * kColTile + c], sm[(r + tt) * kColTile + c], w[m + i], ws[m + i], q, q2);
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < n1 * kColTile; e += blockDim.x)
-    y[base + (size_t)(e / kColTile) * n2 + e % kColTile] = sm[e];
-}
-
-// Row phase of the forward landing: stages m = N1 .. N/2 (stride t < N2)
-// on row chunk blockIdx.x (N2 contiguous elements) of polynomial row
-// `row`, then the final reduction and the epilogue
-// out = (sub - pre * y) * post mod q (pre may be null).
-template <typename W>
-__global__ void fwd_rows(W *__restrict__ y, Tables<W> tb, const W *__restrict__ sub,
-                         const W *__restrict__ post, const W *__restrict__ post_s,
-                         const W *__restrict__ pre, const W *__restrict__ pre_s,
-                         int L, int log_n, int log_n1) {
-  W *sm = reinterpret_cast<W *>(smem_raw);
-  const int n = 1 << log_n, n2 = n >> log_n1;
-  const int row = blockIdx.y, r = blockIdx.x;
-  const int limb = row % L;
-  const int64_t key = tb.lm[limb];
-  const W q = tb.q[key], q2 = 2 * q;
-  const W *w = tb.w + key * n, *ws = tb.ws + key * n;
-  const size_t base = (size_t)row * n + (size_t)r * n2;
-  for (int e = threadIdx.x; e < n2; e += blockDim.x) sm[e] = y[base + e];
-  __syncthreads();
-  for (int m = 1 << log_n1, t = n2 >> 1; t >= 1; m <<= 1, t >>= 1) {
-    const int groups_before = r * (n2 / (2 * t));
-    for (int k = threadIdx.x; k < (n2 >> 1); k += blockDim.x) {
-      const int il = k / t, idx = il * 2 * t + k % t;
-      const int i = m + groups_before + il;
-      fwd_bfly(sm[idx], sm[idx + t], w[i], ws[i], q, q2);
-    }
-    __syncthreads();
-  }
-  for (int e = threadIdx.x; e < n2; e += blockDim.x) {
-    W v = sm[e];
-    v = csub(v >= q2 ? v - q2 : v, q);
-    if (pre != nullptr) v = csub(shoup_lazy(v, pre[limb], pre_s[limb], q), q);
-    const W d = csub(sub[base + e] + q - v, q);
-    y[base + e] = csub(shoup_lazy(d, post[limb], post_s[limb], q), q);
-  }
-}
-
-// -- the one-launch transforms (cluster design: K1, K2, K4, K5, K6) ----------
+// -- the one-launch transforms (cluster design: K1 to K6) -------------------
 
 namespace cg = cooperative_groups;
 
@@ -301,10 +221,10 @@ struct FinalReduce {
   __device__ __forceinline__ Bound bind(int /*limb*/, W q, W q2) const { return {q, q2}; }
 };
 
-// The landing of moddown and rescale (K6): (sub - pre * y) * post mod q,
-// the arithmetic of fwd_rows' epilogue in the same order.  `sub` has the
-// data's layout and is read by run, 16-byte aligned; pre/pre_s may be
-// null, a runtime flag and not a second instantiation.
+// The landing of moddown and rescale (K3, K6): (sub - pre * y) * post mod
+// q, with the reduction of y to [0, q) first, in the plain version's
+// order.  `sub` has the data's layout and is read by run, 16-byte aligned;
+// pre/pre_s may be null, a runtime flag and not a second instantiation.
 template <typename W>
 struct Landing {
   const W *sub, *post, *post_s, *pre, *pre_s;
@@ -655,26 +575,6 @@ int ntt_inv_cluster(const W *x, W *out, const W *inv_roots, const W *inv_roots_s
   });
 }
 
-int split(int log_n) { return log_n / 2; }
-
-// The two-phase forward landing (K3).  x, out: (rows, N) with
-// rows = (...) * L; out may not alias x; pre/pre_s may be null.
-template <typename W>
-int ntt_fwd_landing_impl(const W *x, W *out, const W *sub, const W *roots, const W *roots_s,
-                         const W *q, const int64_t *limb_map, const W *post, const W *post_s,
-                         const W *pre, const W *pre_s, int rows, int L, int log_n,
-                         void *stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int log_n1 = split(log_n), n1 = 1 << log_n1, n2 = 1 << (log_n - log_n1);
-  const Tables<W> tb{roots, roots_s, q, limb_map};
-  fwd_cols<W><<<dim3(n2 / kColTile, rows), kColThreads, n1 * kColTile * sizeof(W), s>>>(
-      x, out, tb, L, log_n, log_n1);
-  const int threads = n2 / 2 < 256 ? n2 / 2 : 256;
-  fwd_rows<W><<<dim3(n1, rows), threads, n2 * sizeof(W), s>>>(out, tb, sub, post, post_s, pre,
-                                                               pre_s, L, log_n, log_n1);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" {
@@ -686,13 +586,14 @@ int tfhe_ntt_fwd(const u64 *x, u64 *out, const u64 *roots, const u64 *roots_s, c
                               FinalReduce<u64>{}, stream);
 }
 
-// K3: the two-phase transform.
+// K3: K1's transform with the landing epilogue; sub must be 16-byte
+// aligned.
 int tfhe_ntt_fwd_landing(const u64 *x, const u64 *sub, u64 *out, const u64 *roots,
                          const u64 *roots_s, const u64 *q, const int64_t *limb_map,
                          const u64 *post, const u64 *post_s, const u64 *pre,
                          const u64 *pre_s, int rows, int L, int log_n, void *stream) {
-  return ntt_fwd_landing_impl<u64>(x, out, sub, roots, roots_s, q, limb_map, post, post_s, pre,
-                                   pre_s, rows, L, log_n, stream);
+  return ntt_fwd_cluster<u64>(x, out, roots, roots_s, q, limb_map, rows, L, log_n,
+                              Landing<u64>{sub, post, post_s, pre, pre_s}, stream);
 }
 
 // K2: the one-launch cluster transform; x must be 16-byte aligned.

@@ -104,13 +104,14 @@ def multiply_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
 # hybrid key switching (the hot path)
 # --------------------------------------------------------------------------
 
-def _bconv(scaled: torch.Tensor, table: torch.Tensor, diag: torch.Tensor | None,
+def _bconv(scaled: torch.Tensor, table: torch.Tensor, diag: torch.Tensor,
            out: ModulusVec) -> torch.Tensor:
-    """Base conversion into the moduli `out`: K13's form (with the table's
-    digit matrix `diag`) on a q32 context, K11's otherwise."""
+    """Base conversion into the moduli `out`, with the table's digit matrix
+    `diag`: K13's form on a q32 context, K12's (K11's for k >= 64)
+    otherwise."""
     if out.fold is not None:
         return bconv_matmul32(scaled, table, out.q, out.fold, diag)
-    return bconv_matmul(scaled, table, out.q, out.ratio_lo, out.ratio_hi)
+    return bconv_matmul(scaled, table, out.q, out.ratio_lo, out.ratio_hi, diag)
 
 
 def _reduce(x: torch.Tensor, out: ModulusVec) -> torch.Tensor:

@@ -4,24 +4,32 @@
 
 with s[i] = [x_i * qhat_i^{-1}]_{q_i} already applied by the caller.  The
 result keeps the BEHZ alpha*Q overshoot exactly, as the reference does.
-The CUDA kernel (``csrc/bconv.cu``) accumulates 128-bit products in chunks
-of 63 terms (the reference's ``_ACC_CHUNK``: terms are < 2^122, so 63 fit)
-with one Barrett landing per chunk; the plain version reduces each product
-and sums mod p, which is the same function.
+
+``bconv_matmul`` is the u64 form.  On the card it takes the reference's
+rule (``tpu_fhe/ops/bconv.py:91-101``): for k < 64 inputs K12's form
+(port of ``tpu_fhe/ops/bconv_mxu_pallas.py::bconv_matmul_mxu_pallas``,
+kernel ``tfhe_bconv_mxu``), the sum through balanced int8 digit planes on
+the tensor cores -- 8 planes of each residue and of each table entry, s8
+x s8 -> s32 products into the 15 byte diagonals, a wrapping 128-bit
+reassembly and one Barrett landing -- and for k >= 64 K11's kernel
+(``tfhe_bconv``), which accumulates 128-bit products in chunks of 63
+terms (the reference's ``_ACC_CHUNK``: terms are < 2^122, so 63 fit) with
+one Barrett landing per chunk.  The plain version reduces each product
+and sums mod p, which is the same function; ``bconv_matmul_digits_plain``
+repeats K12's digit-plane arithmetic from the digit matrix.
 
 ``bconv_matmul32`` is the q32 form (port of
 ``tpu_fhe/ops/bconv_mxu_pallas.py::bconv_matmul_mxu_pallas32``, K13): int32
-residues, tables and moduli below 2^30.  Its kernel (``csrc/bconv.cu``
-tfhe_bconv32) forms the sum as the reference does, through balanced int8
-digit planes on the tensor cores: 4 planes of each residue and of each
-table entry, the s8 x s8 -> s32 product over the 7 byte diagonals (of whose
-blocks the kernel runs the 16 nonzero ones), a 96-bit reassembly and one
-word-fold landing.  The table's side of that product,
-the digit matrix, is built once per table on the host
-(``digit_matrix32``, kept beside the table by the context) in the order the
-kernel's MMA fragments read it.  ``bconv_matmul32_plain`` sums canonical
-int64 products mod p; ``bconv_matmul32_digits_plain`` repeats the kernel's
-digit-plane arithmetic from the digit matrix.
+residues, tables and moduli below 2^30, through 4 digit planes of each
+residue and table entry, the 7 byte diagonals (of whose blocks the kernel
+runs the 16 nonzero ones), a 96-bit reassembly and one word-fold landing.
+``bconv_matmul32_plain`` sums canonical int64 products mod p;
+``bconv_matmul32_digits_plain`` repeats the kernel's arithmetic.
+
+Both digit forms take the table's side of the product, its digit matrix,
+built once per table on the host (``digit_matrix``, ``digit_matrix32``,
+kept beside the table by the context) in the order the kernel's MMA
+fragments read it; on a CUDA tensor they raise without it.
 """
 
 from __future__ import annotations
@@ -34,14 +42,24 @@ from ._build import INT, PTR, CudaKernel, ptr
 
 BCONV = CudaKernel(
     "bconv", "bconv.cu", "tfhe_bconv", [PTR] * 6 + [INT] * 4,
-    "tpu_fhe/ops/bconv_pallas.py:39 _kernel (K11); "
+    "tpu_fhe/ops/bconv_pallas.py:39 _kernel (K11)")
+BCONV_MXU = CudaKernel(
+    "bconv_mxu", "bconv.cu", "tfhe_bconv_mxu", [PTR] * 6 + [INT] * 4,
     "tpu_fhe/ops/bconv_mxu_pallas.py:82 _kernel (K12)")
 BCONV32 = CudaKernel(
     "bconv32", "bconv.cu", "tfhe_bconv32", [PTR] * 5 + [INT] * 8,
     "tpu_fhe/ops/bconv_mxu_pallas.py:179 _kernel32 (K13)")
 
 
-def bconv_matmul_plain(scaled, qhat_mod_p, p, p_ratio_lo, p_ratio_hi) -> torch.Tensor:
+N_PLANES = 8            # balanced base-256 digits of a value below 2^61
+N_DIAG = 2 * N_PLANES - 1
+N_LAGS = N_PLANES + 1   # K12's table fragments [plane d | plane d - 1], d = 0 .. 8
+MXU_MAX_K = 63          # K12's 128-bit row sum is exact for k < 64 inputs
+
+
+def bconv_matmul_plain(scaled, qhat_mod_p, p, p_ratio_lo, p_ratio_hi, diag=None) -> torch.Tensor:
+    """The function, one reduced product at a time.  Takes bconv_matmul's
+    arguments; `diag` is not needed here."""
     m, k = qhat_mod_p.shape
     p, rlo, rhi = (v.reshape(m, 1) for v in (p, p_ratio_lo, p_ratio_hi))
     out = None
@@ -52,10 +70,12 @@ def bconv_matmul_plain(scaled, qhat_mod_p, p, p_ratio_lo, p_ratio_hi) -> torch.T
 
 
 def bconv_matmul(scaled: torch.Tensor, qhat_mod_p: torch.Tensor, p: torch.Tensor,
-                 p_ratio_lo: torch.Tensor, p_ratio_hi: torch.Tensor) -> torch.Tensor:
+                 p_ratio_lo: torch.Tensor, p_ratio_hi: torch.Tensor,
+                 diag: torch.Tensor | None = None) -> torch.Tensor:
     """scaled (..., k, N) canonical residues of the input base; qhat_mod_p
-    (m, k) table [p_j][q_i]; p and its Barrett words (m, 1).  Returns
-    (..., m, N) residues of the output base."""
+    (m, k) table [p_j][q_i]; p and its Barrett words (m, 1); diag the
+    table's ``digit_matrix`` (needed by K12's kernel, k < 64; built once
+    per table).  Returns (..., m, N) residues of the output base."""
     m, k = qhat_mod_p.shape
     if scaled.dtype != torch.int64 or scaled.dim() < 2 or scaled.shape[-2] != k:
         raise ValueError(f"bconv_matmul: expected (..., {k}, N) int64, got "
@@ -72,7 +92,16 @@ def bconv_matmul(scaled: torch.Tensor, qhat_mod_p: torch.Tensor, p: torch.Tensor
             raise ValueError("bconv_matmul: batch and output base must be <= 65535")
         out = torch.empty(scaled.shape[:-2] + (m, n), dtype=torch.int64,
                           device=scaled.device)
-        BCONV(ptr(scaled), ptr(out), *(ptr(c) for c in consts), batch, k, m, n)
+        if k > MXU_MAX_K:
+            BCONV(ptr(scaled), ptr(out), *(ptr(c) for c in consts), batch, k, m, n)
+            return out
+        shape = digit_matrix_shape(m, k)
+        if diag is None or diag.shape != shape or diag.dtype != torch.int32 \
+                or diag.device != scaled.device or not diag.is_contiguous():
+            raise ValueError(f"bconv_matmul: K12's kernel needs the table's digit matrix "
+                             f"{shape} int32 on the data's device (digit_matrix)")
+        BCONV_MXU(ptr(scaled), ptr(out), ptr(diag), *(ptr(c) for c in consts[1:]),
+                  batch, k, m, n)
         return out
     if scaled.device.type != "cpu":
         raise ValueError(f"bconv_matmul: unsupported device {scaled.device}")
@@ -80,14 +109,8 @@ def bconv_matmul(scaled: torch.Tensor, qhat_mod_p: torch.Tensor, p: torch.Tensor
 
 
 # --------------------------------------------------------------------------
-# the q32 form: balanced int8 digit planes (K13)
+# the digit-plane form of u64 residues (K12)
 # --------------------------------------------------------------------------
-
-N_PLANES = 8            # balanced base-256 digits of a value below 2^61
-N_PLANES_32 = 4         # ... of a value below 2^30
-N_DIAG_32 = 2 * N_PLANES_32 - 1
-K_CHUNK = 512           # inputs per launch; longer sums add launches mod p
-
 
 def balanced_digits(m) -> np.ndarray:
     """(...) uint64 values below 2^61 -> (8, ...) int8 balanced base-256
@@ -105,21 +128,137 @@ def balanced_digits(m) -> np.ndarray:
     return digits
 
 
-def diag_matrix_jk32(table, m_pad: int) -> np.ndarray:
-    """A[(s, j_pad), (plane, i)] = Tdig_{s - plane}[j, i] (int8), the
-    reference's digit matrix over 4 planes and 7 diagonals (a copy of
-    ``tpu_fhe/ops/bconv_mxu_pallas.py::_diag_matrix_jk32``); table (m, k)
-    of values below 2^30, rows padded to m_pad."""
+def diag_matrix_jk(table, m_pad: int, planes: int = N_PLANES) -> np.ndarray:
+    """A[(s, j_pad), (plane, i)] = Tdig_{s - plane}[j, i] (int8) over
+    `planes` digit planes and 2 planes - 1 diagonals: the reference's digit
+    matrix (a copy of ``tpu_fhe/ops/bconv_mxu_pallas.py::_diag_matrix_jk``,
+    and with 4 planes of ``_diag_matrix_jk32``); table (m, k) of values
+    below 2^61 (2^30 for 4 planes), rows padded to m_pad."""
     t = np.asarray(table, dtype=np.uint64)
     m, k = t.shape
-    tdig = balanced_digits(t)[:N_PLANES_32]          # planes 4..7 are zero
-    a = np.zeros((N_DIAG_32, m_pad, N_PLANES_32, k), dtype=np.int8)
-    for s in range(N_DIAG_32):
-        for j in range(N_PLANES_32):
+    n_diag = 2 * planes - 1
+    tdig = balanced_digits(t)[:planes]
+    a = np.zeros((n_diag, m_pad, planes, k), dtype=np.int8)
+    for s in range(n_diag):
+        for j in range(planes):
             i = s - j
-            if 0 <= i < N_PLANES_32:
+            if 0 <= i < planes:
                 a[s, :m, j, :] = tdig[i]
-    return a.reshape(N_DIAG_32 * m_pad, N_PLANES_32 * k)
+    return a.reshape(n_diag * m_pad, planes * k)
+
+
+def digit_matrix_shape(m: int, k: int) -> tuple:
+    return (-(-m // 16), N_LAGS, -(-k // 16), 32, 4)
+
+
+def digit_matrix(table: torch.Tensor) -> torch.Tensor:
+    """K12's digit matrix of a u64 table (m, k) of values below 2^61, on
+    the table's device: int32 words (ceil(m/16), 9, ceil(k/16), 32, 4).
+
+    A K step of the kernel's MMA takes 16 inputs in two input digit planes
+    (K = 32: planes 2e and 2e + 1), so its table fragment for lag d is
+    A_d = [plane d | plane d - 1] of the table's balanced digits (planes
+    -1 and 8 are zero), and A_d times input pair e is the diagonal
+    d + 2e.  Entry [t, d, c, lane, reg] is the word (4 consecutive inputs'
+    digits) lane 4g + h holds in mma.m16n8k32's s8 A register reg, for
+    limbs 16t .. 16t + 15 and inputs 16c .. 16c + 15: limb row g (reg 0,
+    2) or g + 8 (reg 1, 3), plane d (reg 0, 1) or d - 1 (reg 2, 3), inputs
+    16c + 4h .. 16c + 4h + 3.  Padding limbs and inputs are zero."""
+    tab = table.detach().cpu().numpy().view(np.uint64)
+    m, k = tab.shape
+    mg, _, ch = digit_matrix_shape(m, k)[:3]
+    planes = np.zeros((N_PLANES + 2, 16 * mg, 16 * ch), dtype=np.int8)   # [a + 1], a = -1 .. 8
+    planes[1:N_PLANES + 1, :m, :k] = balanced_digits(tab)
+    words = planes.view(np.int32).reshape(N_PLANES + 2, mg, 2, 8, ch, 4)   # [a+1, t, rh, g, c, h]
+    frag = np.empty((mg, N_LAGS, ch, 8, 4, 4), dtype=np.int32)             # [t, d, c, g, h, reg]
+    for reg in range(4):
+        lag, rh = reg >> 1, reg & 1
+        # plane a = d - lag for d = 0 .. 8: rows a + 1 = 1 - lag .. 9 - lag
+        frag[..., reg] = words[1 - lag:N_LAGS + 1 - lag, :, rh].transpose(1, 0, 3, 2, 4)
+    return torch.from_numpy(frag.reshape(digit_matrix_shape(m, k))).to(table.device)
+
+
+def fragment_blocks(frag: torch.Tensor) -> torch.Tensor:
+    """digit_matrix's words back to the MMA's A operands: (9, 16 ceil(m/16),
+    32 ceil(k/16)) int8, row = limb, column 32c + kk = input 16c + kk of
+    plane d (kk < 16) or of plane d - 1 (kk >= 16)."""
+    mg, lags, ch = frag.shape[:3]
+    w = frag.cpu().numpy().reshape(mg, lags, ch, 8, 4, 2, 2)        # [t, d, c, g, h, kh, rh]
+    a = np.ascontiguousarray(w.transpose(1, 0, 6, 3, 2, 5, 4))      # [d, t, rh, g, c, kh, h]
+    return torch.from_numpy(a.reshape(lags, 16 * mg, 8 * ch).view(np.int8).copy())
+
+
+def digit_planes(x: torch.Tensor) -> torch.Tensor:
+    """(...) int64 residues below 2^61 -> (..., 8) int64 balanced digits:
+    the bytes of x + 0x8080808080808080 are the digits plus 128 (no byte
+    carries out, since x < 2^61), the kernel's two-instruction
+    extraction.  The constant is added as its int64 pattern, which wraps
+    as the kernel's u64 add does."""
+    v = x + (0x8080808080808080 - (1 << 64))
+    return torch.stack([((v >> (8 * p)) & 0xFF) - 128 for p in range(N_PLANES)], dim=-1)
+
+
+def _u64_of_words(w_lo: torch.Tensor, w_hi: torch.Tensor) -> torch.Tensor:
+    """The u64 pattern w_lo + 2^32 w_hi (32-bit words in int64) as int64,
+    without signed overflow."""
+    return w_lo | ((w_hi & ma.M31) << 32) | ((w_hi >> 31) * ma.SIGN)
+
+
+def bconv_matmul_digits_plain(scaled, qhat_mod_p, p, p_ratio_lo, p_ratio_hi,
+                              diag) -> torch.Tensor:
+    """K12's kernel arithmetic on the CPU, from the digit matrix `diag`
+    (``digit_matrix``): per 16 inputs the s32 products A_d @ [plane 2e;
+    plane 2e + 1] of the inputs' digits into diagonal d + 2e, the four
+    signed 64-bit groups G_w = sum_r D_{4w + r} 2^(8r), their sum
+    sum_w G_w 2^(32w) mod 2^128 (the row sum itself, below k 2^122), and
+    the Barrett landing with floor(2^128/p).  Takes bconv_matmul's
+    arguments; `qhat_mod_p` gives the shape only."""
+    m, k = qhat_mod_p.shape
+    a = fragment_blocks(diag).to(torch.int64)                    # (9, 16 mg, 32 ch)
+    ch = a.shape[-1] // 32
+    x = scaled.cpu()
+    x = torch.cat([x, x.new_zeros(x.shape[:-2] + (16 * ch - k, x.shape[-1]))], dim=-2)
+    dig = digit_planes(x)                                        # (..., 16 ch, N, 8)
+    lead, n = x.shape[:-2], x.shape[-1]
+    # pair e of chunk c: rows 32c + kk = input 16c + kk of plane 2e + (kk >= 16)
+    b = dig.reshape(lead + (ch, 16, n, 4, 2)).movedim(-2, 0).movedim(-1, -3)  # (4, ..., ch, 2, 16, N)
+    b = b.reshape((4,) + lead + (32 * ch, n))
+    d = [None] * N_DIAG
+    for lag in range(N_LAGS):
+        for e in range(4):
+            prod = a[lag] @ b[e]                                 # (..., 16 mg, N)
+            s = lag + 2 * e
+            d[s] = prod if d[s] is None else d[s] + prod
+    if max(int(v.abs().max()) for v in d) >= 1 << 31:
+        raise AssertionError("a diagonal left the s32 range")
+    g = [sum(d[s] * (1 << (8 * (s - 4 * w))) for s in range(4 * w, min(4 * w + 4, N_DIAG)))
+         for w in range(4)]
+    # sum_w G_w 2^(32w) mod 2^128 in 32-bit words, carries by arithmetic shift
+    words, carry = [], 0
+    for w in range(4):
+        t = g[w] + carry
+        words.append(t & ma.M32)
+        carry = t >> 32
+    lo, hi = _u64_of_words(words[0], words[1]), _u64_of_words(words[2], words[3])
+    q, rlo, rhi = (v.reshape(m, 1).cpu() for v in (p, p_ratio_lo, p_ratio_hi))
+    out = ma.barrett_reduce_u128(hi[..., :m, :], lo[..., :m, :], q, rlo, rhi)
+    return out.to(scaled.device)
+
+
+# --------------------------------------------------------------------------
+# the q32 form: balanced int8 digit planes (K13)
+# --------------------------------------------------------------------------
+
+N_PLANES_32 = 4         # balanced base-256 digits of a value below 2^30
+N_DIAG_32 = 2 * N_PLANES_32 - 1
+K_CHUNK = 512           # inputs per launch; longer sums add launches mod p
+
+
+def diag_matrix_jk32(table, m_pad: int) -> np.ndarray:
+    """The reference's digit matrix over 4 planes and 7 diagonals (a copy of
+    ``tpu_fhe/ops/bconv_mxu_pallas.py::_diag_matrix_jk32``); table (m, k)
+    of values below 2^30, rows padded to m_pad."""
+    return diag_matrix_jk(table, m_pad, N_PLANES_32)
 
 
 def digit_matrix32(table: torch.Tensor) -> torch.Tensor:

@@ -3,13 +3,12 @@
 Port of ``tpu_fhe/ops/ntt.py``.  Each transform has a plain torch version
 (the stage loop of the JAX package's XLA path, canonical butterflies) and a
 CUDA kernel (``csrc/ntt.cu``, Harvey-lazy butterflies): the forward and
-inverse transforms of both words (K1, K2, K4, K5) and the q32 forward
-landing (K6) in one launch per limb, held in the shared memory of a
-thread-block cluster, the u64 forward landing (K3) in the two-phase
-N1 x N2 split.  The cluster kernels read their inputs in 16-byte runs
-(the inverse its data, K6 its ``sub``), so the wrappers raise on a tensor
-that is not 16-byte aligned.  The wrappers take the plain version for CPU
-tensors only; for a CUDA tensor they launch the kernel or raise.
+inverse transforms of both words (K1, K2, K4, K5) and the forward landings
+(K3, K6) in one launch per limb, held in the shared memory of a
+thread-block cluster.  The kernels read their inputs in 16-byte runs (the
+inverse its data, the landings their ``sub``), so the wrappers raise on a
+tensor that is not 16-byte aligned.  The wrappers take the plain version
+for CPU tensors only; for a CUDA tensor they launch the kernel or raise.
 
 Two word sizes, chosen by the tables as the reference chooses its plan
 (``tpu_fhe/ops/ntt.py:206-211``): int64 tables and residues on the u64 plan
@@ -302,8 +301,8 @@ def forward_ntt_sub_scale(x: torch.Tensor, sub: torch.Tensor, t: DeviceNTTTables
     if _on_cpu(x, "forward_ntt_sub_scale"):
         return forward_ntt_sub_scale_plain(x, sub, t, post, post_s, pre_v, pre_s)
     rows, L, log_n = _launch_dims(x, t, "forward_ntt_sub_scale")
-    if t.is_q32 and sub.data_ptr() % 16:
-        raise ValueError("forward_ntt_sub_scale: the q32 kernel reads 16-byte aligned sub")
+    if sub.data_ptr() % 16:
+        raise ValueError("forward_ntt_sub_scale: the kernel reads 16-byte aligned sub")
     out = torch.empty_like(x)
     (NTT_FWD_LANDING32 if t.is_q32 else NTT_FWD_LANDING)(
         ptr(x), ptr(sub), ptr(out), ptr(t.roots), ptr(t.roots_shoup), ptr(t.key_q),

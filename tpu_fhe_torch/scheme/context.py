@@ -28,7 +28,7 @@ from ..core.ntt_tables import make_ntt_tables
 from ..core.params import EncryptionParameters, SchemeType
 from ..core.rns import BaseConverter, KeySwitchDigits, RNSBase
 from ..ops import modarith as mm
-from ..ops.bconv import digit_matrix32
+from ..ops.bconv import digit_matrix, digit_matrix32
 from ..ops.modarith import u32_tensor, u64_tensor
 from ..ops.ntt import DeviceNTTTables, build_device_ntt_tables
 
@@ -106,9 +106,10 @@ class DigitTables:
     start: int                    # first Ql limb index of this digit
     end: int                      # one past last
     qhat_mod_p: torch.Tensor      # (comp_size, digit_size)
-    # on a q32 context the table's digit matrix for K13's kernel
-    # (ops/bconv.py digit_matrix32); None on the u64 plan
-    qhat_mod_p_diag: torch.Tensor | None
+    # the table's digit matrix for the tensor-core kernel: K12's
+    # (ops/bconv.py digit_matrix) on the u64 plan, K13's (digit_matrix32)
+    # on a q32 context
+    qhat_mod_p_diag: torch.Tensor
     comp_mod: ModulusVec          # complement base (Ql minus digit) + P
     comp_ntt: DeviceNTTTables     # twiddles for the complement limbs
 
@@ -133,7 +134,7 @@ class KeySwitchTables:
     p_hatinv: torch.Tensor         # (size_P, 1) [ (P/p_j)^{-1} ]_{p_j}
     p_hatinv_shoup: torch.Tensor
     p_hat_mod_q: torch.Tensor      # (size_Ql, size_P)
-    p_hat_mod_q_diag: torch.Tensor | None   # its digit matrix (q32 only)
+    p_hat_mod_q_diag: torch.Tensor  # its digit matrix
     p_mod: ModulusVec
     p_ntt: DeviceNTTTables
     big_pinv_mod_q: torch.Tensor   # (size_Ql, 1)
@@ -223,8 +224,7 @@ class FheContext:
                 part_qhatinv[i] = b.q_hat_inv_mod_q[j]
         table = u32_tensor if q32 else u64_tensor
 
-        def diag(t: torch.Tensor) -> torch.Tensor | None:
-            return digit_matrix32(t) if q32 else None
+        diag = digit_matrix32 if q32 else digit_matrix
 
         digit_tables = []
         for d in range(digits.beta):
