@@ -58,16 +58,39 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     first); one rotate and one hoisted sum held bit-exact against the plain
     versions; rotate ms/op and rotations/s (median-of-pairs marginal),
     launches per rotate, a profiler window of 10 rotates, and a hoisted sum
-    over 4 steps against 4 separate rotates and 3 adds.
+    over 4 steps against 4 separate rotates and 3 adds;
+ 7. graphs: every method of the graph-replaying Evaluator (eval/jit.py)
+    through its CUDA graph bit-identical to the eager op at chain index 1,
+    a replay on new inputs leaving an earlier result as it was, then eager
+    against graph ms/op for relinearize, multiply_relin and rotate (a
+    graph's launches are its eager launches once per replay: the counters
+    count in Python and see the capture, not the replays), a profile of
+    each op's replays and the peak device memory;
+ 8. EvalMod, the bootstrap's sine stage (Chebyshev series -> mod_reduce ->
+    double angles, on eval/chebyshev.py and eval/auto.py): the sparse set
+    K = 28, r = 3, degree 44 on the u64 plan and the default K = 512, r = 6,
+    degree 88 on the q32 plan, on N/2 real slots uniform in [-1, 1] at chain
+    index 1, within 1e-5 of the float64 cleartext, every kernel of the path
+    launched (counters set to 0 first), bit-exact against the plain
+    versions, ms per EvalMod and a profile;
+ 9. raise_mod from the anchor level (the last level on the u64 plan, the
+    anchor pair by Garner on the q32 plan) to chain index 1: the NTT
+    kernels launched, bit-exact against the plain versions, and the
+    raised decryption equal to the anchor's plus exact multiples of the
+    anchor's product.
 
-Last, the kernels line (every kernel of both plans) and the line
-{"ok": true, "device": {...}}.
+Phases 7 to 9 run for both plans after phases 3 to 6 of both (the graphs,
+then raise_mod, then EvalMod): their profile windows hold many events, and
+a profiler window late in a process can lose some.  Last, the kernels
+line (every kernel of both plans) and the line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import math
 import subprocess
 import sys
 import time
@@ -198,7 +221,20 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
-    line = u64_slice(card) + q32_slice(card)
+    plans = [u64_slice(card), q32_slice(card)]
+    # -- 7.-9. on both plans, after phases 3-6 of both: these phases' profiles
+    # hold many events, and a profiler window late in a process can lose
+    # some, so they come after every one-launch check, EvalMod's last
+    for plan in plans:
+        graph_phase(plan["tag"], plan["ctx"], plan["ck"], plan["rlk"], plan.pop("gk"), card)
+    for plan in plans:
+        plan["raised"] = raise_mod_phase(plan["tag"], plan["ctx"], plan["ck"], plan["sk"])
+    line = []
+    for plan in plans:
+        emod = eval_mod_phase(plan["tag"], plan["ctx"], plan["ck"], plan["sk"], plan["rlk"],
+                              plan["sine"], plan["off_path"], card)
+        line += plan["ck"].line({name: count + emod[name] + plan["raised"][name]
+                                 for name, count in plan["launches"].items()})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                              "count": torch.cuda.device_count()}}), flush=True)
@@ -329,7 +365,7 @@ def int_mm_yardstick(k: int, m: int, card: str) -> None:
 # the u64 plan
 # --------------------------------------------------------------------------
 
-def u64_slice(card: str) -> list:
+def u64_slice(card: str) -> dict:
     import torch
 
     from tpu_fhe_torch.core.modulus import CoeffModulus
@@ -471,16 +507,18 @@ def u64_slice(card: str) -> list:
     del ct3, products
 
     # -- 6. rotations -----------------------------------------------------
-    rot = rotation_phase("u64", ctx, ck, sk, SCALE, keep=2,
-                         off_path=("key_inner_prod_shoup", "bconv"), card=card)
-    return ck.line({name: launches[name] + rot[name] for name in launches})
+    rot, gk = rotation_phase("u64", ctx, ck, sk, SCALE, keep=2,
+                             off_path=("key_inner_prod_shoup", "bconv"), card=card)
+    return dict(tag="u64", ctx=ctx, ck=ck, sk=sk, rlk=rlk, gk=gk, sine=SPARSE_SINE,
+                off_path=("key_inner_prod", "bconv"),
+                launches={name: launches[name] + rot[name] for name in launches})
 
 
 # --------------------------------------------------------------------------
 # the q32 plan of composite scaling
 # --------------------------------------------------------------------------
 
-def q32_slice(card: str) -> list:
+def q32_slice(card: str) -> dict:
     import torch
 
     from tpu_fhe_torch.core.modulus import CoeffModulus
@@ -627,9 +665,11 @@ def q32_slice(card: str) -> list:
     del ct3, products
 
     # -- 6. rotations -----------------------------------------------------
-    rot = rotation_phase("q32", ctx, ck, sk, SCALE32, keep=4,
-                         off_path=("key_inner_prod_shoup32",), card=card)
-    return ck.line({name: launches[name] + rot[name] for name in launches})
+    rot, gk = rotation_phase("q32", ctx, ck, sk, SCALE32, keep=4,
+                             off_path=("key_inner_prod_shoup32",), card=card)
+    return dict(tag="q32", ctx=ctx, ck=ck, sk=sk, rlk=rlk, gk=gk, sine=UNIFORM_SINE,
+                off_path=("key_inner_prod32",),
+                launches={name: launches[name] + rot[name] for name in launches})
 
 
 # --------------------------------------------------------------------------
@@ -827,9 +867,10 @@ def one_launch(what: str, fn, names: tuple, reps: int = 10, windows: int = 3) ->
     whose name holds every one of `names`, `reps` times: the
     one-cluster-launch transform, not the two-phase pair.  The profiler can
     drop events in a long process (seen on the H100: 9 of 10 launches of one
-    kernel), so a window that sees that kernel alone but fewer times is
-    taken again, up to `windows` in all; a window that sees any other
-    kernel, or more launches, fails at once."""
+    kernel, and a window with no event at all), so a window that sees that
+    kernel alone but fewer times, or nothing, is taken again, up to
+    `windows` in all; a window that sees any other kernel, or more
+    launches, fails at once."""
     import torch
 
     fn()
@@ -843,13 +884,13 @@ def one_launch(what: str, fn, names: tuple, reps: int = 10, windows: int = 3) ->
     for window in range(1, windows + 1):
         seen = [(e.key, e.count) for e in device_kernels(run)]
         alone = len(seen) == 1 and all(k in seen[0][0] for k in names)
-        if not alone or seen[0][1] > reps:
+        if seen and (not alone or seen[0][1] > reps):
             fail(f"{what}: expected {reps} launches of {' '.join(names)} alone, the "
                  f"profile saw {seen}")
-        if seen[0][1] == reps:
+        if seen and seen[0][1] == reps:
             break
-        log(f"[one launch] {what}: window {window} saw {seen[0][1]} of {reps} launches "
-            "(the profiler lost events)")
+        log(f"[one launch] {what}: window {window} saw {seen[0][1] if seen else 0} of "
+            f"{reps} launches (the profiler lost events)")
     else:
         fail(f"{what}: expected {reps} launches of {' '.join(names)}; {windows} profiles "
              f"each lost events, the last saw {seen}")
@@ -859,9 +900,10 @@ def one_launch(what: str, fn, names: tuple, reps: int = 10, windows: int = 3) ->
 @contextlib.contextmanager
 def plain_versions():
     """Within this block the evaluator (and hoisting, which calls its
-    keyswitch stages) computes through the kernels' plain torch versions,
-    on the same CUDA tensors: the names it calls are swapped for them."""
-    from tpu_fhe_torch.eval import evaluator as ev
+    keyswitch stages) and auto (and Chebyshev, which calls it) compute
+    through the kernels' plain torch versions, on the same CUDA tensors:
+    the names they call are swapped for them."""
+    from tpu_fhe_torch.eval import auto, evaluator as ev
     from tpu_fhe_torch.ops import bconv, ks, ntt
 
     swaps = dict(
@@ -871,14 +913,15 @@ def plain_versions():
         bconv_matmul=bconv.bconv_matmul_plain, bconv_matmul32=bconv.bconv_matmul32_plain,
         key_inner_prod=ks.key_inner_prod_plain, key_inner_prod32=ks.key_inner_prod32_plain,
         key_inner_prod_shoup=ks.key_inner_prod_shoup_plain)
-    saved = {name: getattr(ev, name) for name in swaps}
-    for name, fn in swaps.items():
-        setattr(ev, name, fn)
+    saved = [(mod, name, getattr(mod, name)) for mod in (ev, auto) for name in swaps
+             if hasattr(mod, name)]
+    for mod, name, _ in saved:
+        setattr(mod, name, swaps[name])
     try:
         yield
     finally:
-        for name, fn in saved.items():
-            setattr(ev, name, fn)
+        for mod, name, fn in saved:
+            setattr(mod, name, fn)
 
 
 def same_as_plain(tag: str, what: str, ck: Checker, run) -> None:
@@ -900,11 +943,11 @@ def same_as_plain(tag: str, what: str, ck: Checker, run) -> None:
 
 
 def rotation_phase(tag: str, ctx, ck: Checker, sk, scale: float, keep: int, off_path: tuple,
-                   card: str) -> dict:
+                   card: str) -> tuple[dict, object]:
     """Phase 6: Galois keys, ROT_REQUESTS rotation requests at chain index
     1 (results mod-dropped to `keep` limbs before decryption), the launch
     and bit-exact checks, and the rotation timings.  Returns the launch
-    counts of the requests."""
+    counts of the requests and the Galois keys."""
     import torch
 
     from tpu_fhe_torch.eval import evaluator as ev, hoisting as ho
@@ -998,6 +1041,255 @@ def rotation_phase(tag: str, ctx, ck: Checker, sk, scale: float, keep: int, off_
         f"ms (spread {hoist_spread * 100:.0f}%), {len(steps)} rotates + {len(steps) - 1} adds "
         f"{sep_ms:.4f} ms (spread {sep_spread * 100:.0f}%): {sep_ms / hoist_ms:.2f}x on {card}")
     profile_ops(tag, hoisted, "hoisted sum", reps=5)
+    return launches, gk
+
+
+# --------------------------------------------------------------------------
+# the evaluation layer: the graph Evaluator, EvalMod, raise_mod
+# --------------------------------------------------------------------------
+
+def graph_phase(tag: str, ctx, ck: Checker, rlk, gk, card: str) -> None:
+    """Phase 7: every method of the graph-replaying Evaluator (eval/jit.py)
+    through its graph (the first call captures and replays, the second
+    replays) bit-identical to the eager module function on the same inputs
+    at chain index 1; a replay on new inputs leaves an earlier result as it
+    was; then eager and graph ms/op (median-of-pairs marginal, turns eager,
+    graph, graph, eager) for relinearize, multiply_relin and rotate, with a
+    profile window of each op's replays, and the peak device memory.  The
+    launch counters count in Python, so a graph's launches are its eager
+    launches once per replay; they are logged per method."""
+    import torch
+
+    from tpu_fhe_torch.eval import auto, evaluator as ev
+    from tpu_fhe_torch.eval.jit import Evaluator
+    from tpu_fhe_torch.ops.galois import galois_elt_from_step
+    from tpu_fhe_torch.scheme.ciphertext import Ciphertext, Plaintext
+
+    level = ctx.level(1)
+    residues = residue_maker(ctx.device, N, 2100)
+    scale = auto.default_scale(ctx)
+    a, b, c3, c3b = (Ciphertext(residues(level.mod.q, s), 1, scale) for s in (2, 2, 3, 3))
+    pt = Plaintext(residues(level.mod.q), 1, scale)
+    elt = galois_elt_from_step(1, N)
+    calls = {
+        "add": (lambda E: E.add(a, b), lambda: ev.add(ctx, a, b)),
+        "sub": (lambda E: E.sub(a, b), lambda: ev.sub(ctx, a, b)),
+        "negate": (lambda E: E.negate(a), lambda: ev.negate(ctx, a)),
+        "add_plain": (lambda E: E.add_plain(a, pt), lambda: ev.add_plain(ctx, a, pt)),
+        "sub_plain": (lambda E: E.sub_plain(a, pt), lambda: ev.sub_plain(ctx, a, pt)),
+        "multiply": (lambda E: E.multiply(a, b), lambda: ev.multiply(ctx, a, b)),
+        "multiply_plain": (lambda E: E.multiply_plain(a, pt),
+                           lambda: ev.multiply_plain(ctx, a, pt)),
+        "square": (lambda E: E.square(a), lambda: ev.square(ctx, a)),
+        "relinearize": (lambda E: E.relinearize(c3, rlk), lambda: ev.relinearize(ctx, c3, rlk)),
+        "multiply_relin": (lambda E: E.multiply_relin(a, b, rlk),
+                           lambda: ev.relinearize(ctx, ev.multiply(ctx, a, b), rlk)),
+        "square_relin": (lambda E: E.square_relin(a, rlk),
+                         lambda: ev.relinearize(ctx, ev.square(ctx, a), rlk)),
+        "rescale": (lambda E: E.rescale(a), lambda: ev.rescale_to_next(ctx, a)),
+        "mod_drop": (lambda E: E.mod_drop(a), lambda: ev.mod_drop_to_next(ctx, a)),
+        "rotate": (lambda E: E.rotate(a, 1, gk),
+                   lambda: ev.apply_galois_with_key(ctx, a, elt, gk.key_for_elt(elt))),
+        "conjugate": (lambda E: E.conjugate(a, gk), lambda: ev.conjugate(ctx, a, gk)),
+    }
+
+    def meta(c):
+        return c.chain_index, c.scale, c.noise_scale_deg, tuple(c.data.shape), c.data.dtype
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    E = Evaluator(ctx)
+    for name, (via, direct) in calls.items():
+        ck.reset()
+        want = direct()
+        eager = {k: v for k, v in ck.launches().items() if v}
+        first, again = via(E), via(E)
+        torch.cuda.synchronize()
+        for got in (first, again):
+            if meta(got) != meta(want) or not torch.equal(got.data, want.data):
+                fail(f"{tag} Evaluator.{name}: the graph replay differs from the eager op")
+        log(f"[{tag} graph] Evaluator.{name}: capture and 2 replays == eager, bit for bit; "
+            f"launches per replay (as eager) {eager}")
+    first = E.relinearize(c3, rlk)
+    kept = first.data.clone()
+    second = E.relinearize(c3b, rlk)
+    torch.cuda.synchronize()
+    if not torch.equal(first.data, kept) or torch.equal(first.data, second.data) or \
+            not torch.equal(second.data, ev.relinearize(ctx, c3b, rlk).data):
+        fail(f"{tag} Evaluator: a replay on new inputs changed an earlier result")
+    log(f"[{tag} graph] a replay on new inputs leaves the earlier result as it was "
+        f"(results are clones)")
+    log(f"[{tag} graph] {E.num_graphs} graphs in one pool; peak device memory since the "
+        f"phase began {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    timed = {"relinearize": calls["relinearize"], "multiply_relin": calls["multiply_relin"],
+             "rotate": calls["rotate"]}
+    for name, (via, direct) in timed.items():
+        def graph():
+            return via(E)
+        turns = [marginal_ms(f"{tag} {turn} {name}", fn)
+                 for turn, fn in (("eager", direct), ("graph", graph), ("graph", graph),
+                                  ("eager", direct))]
+        ms = [t[0] for t in turns]
+        log(f"[{tag} graph] {name} at chain index 1, ms/op (median of marginal pairs; turns "
+            f"eager, graph, graph, eager): " + ", ".join(
+                f"{m:.4f} (spread {t[1] * 100:.0f}%)" for m, t in zip(ms, turns))
+            + f"; eager/graph {(ms[0] + ms[3]) / (ms[1] + ms[2]):.2f}x on {card}")
+        profile_ops(f"{tag} graph", graph, name)
+
+
+# bootstrap.py's sine stage (EvalMod): (K, r, degree) of the sine's
+# Chebyshev approximation, K the bound of the integer part, r the number of
+# double angles (tpu_fhe/boot/bootstrap.py:33-35, 71-72, 81-87)
+SPARSE_SINE = (28, 3, 44)                # the sparse-secret set
+UNIFORM_SINE = (512, 6, 88)              # the default, uniform ternary secret
+EVALMOD_TOL = 1e-5
+
+
+def sine_coefficients(k: int, r: int, degree: int) -> list[float]:
+    """Chebyshev coefficients of (2 pi)^(-1/2^r) cos(2 pi / 2^r (k x - 1/4))
+    on [-1, 1] (tpu_fhe/boot/bootstrap.py:38-45)."""
+    from tpu_fhe_torch.eval import chebyshev as cheb
+
+    scale = (2 * math.pi) ** (-1.0 / (1 << r))
+
+    def f(x):
+        return scale * math.cos(2 * math.pi / (1 << r) * (k * x - 0.25))
+
+    return cheb.eval_chebyshev_coefficients(f, -1.0, 1.0, degree)
+
+
+def double_angle_constant(j: int, r: int) -> float:
+    return -1.0 / math.pow(2.0 * math.pi, math.pow(2.0, j - r))
+
+
+def eval_mod(ctx, ct, rlk, coeffs: list[float], r: int, step=None):
+    """The bootstrap's sine stage (tpu_fhe/boot/bootstrap.py:500-510,
+    669-674): the Chebyshev series, one mod_reduce, then r double angles
+    y <- 2 y^2 - (2 pi)^(-2^(j - r)).  `step(name)` is called after each
+    of the three."""
+    from tpu_fhe_torch.eval import auto, chebyshev as cheb
+
+    step = step or (lambda name: None)
+    out = cheb.eval_chebyshev_series(ctx, ct, rlk, coeffs, -1.0, 1.0)
+    step("Chebyshev series")
+    out = auto.mod_reduce(ctx, out, 1)
+    step("mod_reduce")
+    for j in range(1, r + 1):
+        out = auto.eval_square_auto(ctx, out, rlk)
+        out = auto.eval_add_auto(ctx, out, out)
+        out = auto.add_const(ctx, out, double_angle_constant(j, r))
+    step("double angle")
+    return out
+
+
+def eval_mod_clear(x: np.ndarray, coeffs: list[float], r: int) -> np.ndarray:
+    """The same polynomial and recurrence in float64 (the c0/2 convention
+    of eval/chebyshev.py)."""
+    c = np.array(coeffs, dtype=np.float64)
+    c[0] /= 2
+    y = np.polynomial.chebyshev.chebval(x, c)
+    for j in range(1, r + 1):
+        y = 2 * y * y + double_angle_constant(j, r)
+    return y
+
+
+def eval_mod_phase(tag: str, ctx, ck: Checker, sk, rlk, sine: tuple, off_path: tuple,
+                   card: str) -> dict:
+    """Phase 8: EvalMod on N/2 real slots uniform in [-1, 1], encrypted at
+    chain index 1 at the ladder's scale: decoded within EVALMOD_TOL of the
+    cleartext, every kernel of the path launched (counters set to 0 just
+    before, split by stage), bit-identical to the same through the plain
+    versions, ms per EvalMod (CUDA events) and a profile window.  Returns
+    the launch counts of the counted run."""
+    import torch
+
+    from tpu_fhe_torch.eval import auto
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+
+    k, r, degree = sine
+    coeffs = sine_coefficients(k, r, degree)
+    enc = CkksEncoder(ctx)
+    x = np.random.default_rng(12).uniform(-1.0, 1.0, N // 2)
+    ct = sk.encrypt_symmetric(enc.encode(x, auto.default_scale(ctx)))
+    torch.cuda.synchronize()
+    ck.reset()
+    steps = StepLaunches(ck)
+    t0 = time.time()
+    out = eval_mod(ctx, ct, rlk, coeffs, r, steps.add)
+    torch.cuda.synchronize()
+    host_ms = (time.time() - t0) * 1e3
+    launches = ck.launches()
+    got = enc.decode(sk.decrypt(out)).real
+    if got.shape != (N // 2,) or not np.all(np.isfinite(got)):
+        fail(f"{tag} EvalMod: decoded {got.shape} with non-finite values")
+    err = float(np.max(np.abs(got - eval_mod_clear(x, coeffs, r))))
+    log(f"[{tag} EvalMod] K={k}, r={r}, degree {degree}: chain index 1 -> {out.chain_index} "
+        f"(noise-scale degree {out.noise_scale_deg}), first run {host_ms:.1f} ms (host clock), "
+        f"max err {err:.3e} against the float64 cleartext")
+    if not err <= EVALMOD_TOL:
+        fail(f"{tag} EvalMod: max error {err} > {EVALMOD_TOL}")
+    log(f"[{tag} EvalMod] launches in one EvalMod: {launches}")
+    steps.log(f"[{tag} EvalMod]", "one EvalMod")
+    ck.require_launched(f"{tag} EvalMod", launches, off_path)
+    same_as_plain(tag, "EvalMod", ck, lambda: [eval_mod(ctx, ct, rlk, coeffs, r)])
+
+    def run():
+        return eval_mod(ctx, ct, rlk, coeffs, r)
+
+    ms = cuda_ms(run, reps=3, samples=3)
+    log(f"[{tag} EvalMod] {ms:.3f} ms per EvalMod (CUDA events, mean of 3, median of 3) "
+        f"on {card}")
+    profile_ops(f"{tag} EvalMod", run, "EvalMod", reps=2)
+    return launches
+
+
+def raise_mod_phase(tag: str, ctx, ck: Checker, sk) -> dict:
+    """Phase 9: raise_mod of a ciphertext at the anchor level (the last
+    level on the u64 plan; the anchor pair, by Garner, on the q32 plan)
+    back to chain index 1: the forward and inverse NTT kernels launched,
+    bit-identical to the plain versions, and the raised decryption's
+    composed coefficients minus the anchor level's all multiples of the
+    anchor's product Qa, some not zero.  Returns the launch counts."""
+    import torch
+
+    from tpu_fhe_torch.eval import auto
+    from tpu_fhe_torch.ops.ntt import inverse_ntt
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder, _compose_signed
+
+    d = auto.composite_degree(ctx)
+    anchor = len(ctx.chain) - d
+    enc = CkksEncoder(ctx)
+    x = 0.1 * np.random.default_rng(13).standard_normal(N // 2)
+    ct = sk.encrypt_symmetric(enc.encode(x, 2.0 ** 40, chain_index=anchor))
+    torch.cuda.synchronize()
+    ck.reset()
+    raised = auto.raise_mod(ctx, ct)
+    torch.cuda.synchronize()
+    launches = ck.launches()
+    log(f"[{tag} raise_mod] chain index {anchor} ({d} limb{'s' * (d > 1)}) -> "
+        f"{raised.chain_index} ({ctx.level(raised.chain_index).size} limbs); launches "
+        f"{launches}")
+    ck.require_launched(f"{tag} raise_mod", launches,
+                        tuple(n for n in launches if "landing" in n or
+                              not n.startswith(("ntt_fwd", "ntt_inv"))))
+    same_as_plain(tag, "raise_mod", ck, lambda: [auto.raise_mod(ctx, ct)])
+
+    def coeffs(c):
+        level = ctx.level(c.chain_index)
+        data = inverse_ntt(sk.decrypt(c).data, level.ntt).to(torch.int64)
+        return _compose_signed(data.cpu().numpy().view(np.uint64), level.base)
+
+    qa = 1
+    for q in ctx.q_values[:d]:
+        qa *= q
+    residual = [b - s for b, s in zip(coeffs(raised), coeffs(ct))]
+    wraps = sum(r_ != 0 for r_ in residual)
+    if any(r_ % qa for r_ in residual) or not wraps:
+        fail(f"{tag} raise_mod: the raised decryption is not the anchor's plus multiples "
+             f"of Qa ({wraps} nonzero)")
+    log(f"[{tag} raise_mod] composed coefficients: raised - anchor level are multiples of "
+        f"Qa ({qa.bit_length()} bits), {wraps} of {N} nonzero")
     return launches
 
 

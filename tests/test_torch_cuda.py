@@ -4,8 +4,11 @@ plan's (K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, the
 one-cluster-launch transforms (K1-K6) at every ring size from 2^10 to
 2^17, the tensor-core base conversions (K12, K13) over their ranges of
 inputs and outputs, and each slice
-(relinearize and rescale; rotate, conjugate and the hoisted rotation sum)
-on the card against the same slice on the CPU.
+(relinearize and rescale; rotate, conjugate and the hoisted rotation sum;
+the FLEXIBLEAUTO ops, raise_mod and a Chebyshev series) on the card
+against the same slice on the CPU.  Every method of the graph-replaying
+Evaluator equals the eager op through its CUDA graph, at small rings and
+at 2^15, and raises when its capture fails.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
 nvcc; without a card they skip.  They import neither jax nor tpu_fhe, so
@@ -15,6 +18,7 @@ they run where only the port is installed:
 """
 
 import ctypes
+import math
 
 import numpy as np
 import pytest
@@ -23,14 +27,16 @@ import torch
 from tpu_fhe_torch.core.modulus import CoeffModulus
 from tpu_fhe_torch.core.ntt_tables import make_ntt_tables, shoup_np
 from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
-from tpu_fhe_torch.eval import evaluator as ev, hoisting as ho
+from tpu_fhe_torch.eval import auto, chebyshev as cheb, evaluator as ev, hoisting as ho
+from tpu_fhe_torch.eval.jit import Evaluator
+from tpu_fhe_torch.ops.galois import galois_elt_from_step
 from tpu_fhe_torch.ops import _build, bconv, ks, modarith as mm, ntt
 from tpu_fhe_torch.ops.ntt import build_device_ntt_tables
 from tpu_fhe_torch.scheme.context import FheContext
 from tpu_fhe_torch.scheme.keys import SecretKey
 from tpu_fhe_torch.utils.convert import (
-    ciphertext_from_np, galois_key_from_np, galois_key_to_np, relin_key_from_np,
-    relin_key_to_np, to_numpy,
+    ciphertext_from_np, galois_key_from_np, galois_key_to_np, plaintext_from_np,
+    relin_key_from_np, relin_key_to_np, to_numpy,
 )
 
 pytestmark = pytest.mark.cuda
@@ -722,3 +728,168 @@ def test_q32_redesigned_wrappers_refuse_bad_input(gpu):
     flat = torch.zeros(2 * 1024 + 1, dtype=torch.int32, device=gpu)
     with pytest.raises(ValueError, match="16-byte"):             # K5's vector loads
         ntt.inverse_ntt(flat[1:].reshape(2, 1024), key)
+
+
+# -- the evaluation layer: the graph Evaluator, auto, Chebyshev ---------------
+
+FULL_BITS = [60] + [50] * 29 + [60] * 15                 # chip_smoke.py's u64 plan
+FULL_COMPOSITE = dict(scale_bits=58, levels=29, degree=2, anchor_bits=30, special_bits=30,
+                      special_count=30)                  # and its q32 plan
+
+
+def _draw(c, rng, ci, *lead):
+    qs = np.array(c.level(ci).base.values, dtype=np.uint64)[:, None]
+    x = rng.integers(0, 2**62, size=lead + (len(qs), c.n), dtype=np.uint64) % qs
+    return x.astype(np.uint32 if c.is_q32 else np.uint64)
+
+
+def _graph_case(c, seed):
+    """Random operands at chain index 1 and the port's keys on context c."""
+    rng = np.random.default_rng(seed)
+    scale = auto.default_scale(c)
+    a, b, c3, c3b = (ciphertext_from_np(c, _draw(c, rng, 1, s), 1, scale)
+                     for s in (2, 2, 3, 3))
+    sk = SecretKey(c, seed=seed)
+    return dict(a=a, b=b, c3=c3, c3b=c3b, pt=plaintext_from_np(c, _draw(c, rng, 1), 1, scale),
+                rlk=sk.relin_key(), gk=sk.galois_key([1], include_conj=True))
+
+
+def _evaluator_calls(c, x):
+    """Every Evaluator method with the eager module call it must equal."""
+    a, b, c3, pt, rlk, gk = (x[k] for k in ("a", "b", "c3", "pt", "rlk", "gk"))
+    elt = galois_elt_from_step(1, c.n)
+    return {
+        "add": (lambda E: E.add(a, b), lambda: ev.add(c, a, b)),
+        "sub": (lambda E: E.sub(a, b), lambda: ev.sub(c, a, b)),
+        "negate": (lambda E: E.negate(a), lambda: ev.negate(c, a)),
+        "add_plain": (lambda E: E.add_plain(a, pt), lambda: ev.add_plain(c, a, pt)),
+        "sub_plain": (lambda E: E.sub_plain(a, pt), lambda: ev.sub_plain(c, a, pt)),
+        "multiply": (lambda E: E.multiply(a, b), lambda: ev.multiply(c, a, b)),
+        "multiply_plain": (lambda E: E.multiply_plain(a, pt),
+                           lambda: ev.multiply_plain(c, a, pt)),
+        "square": (lambda E: E.square(a), lambda: ev.square(c, a)),
+        "relinearize": (lambda E: E.relinearize(c3, rlk), lambda: ev.relinearize(c, c3, rlk)),
+        "multiply_relin": (lambda E: E.multiply_relin(a, b, rlk),
+                           lambda: ev.relinearize(c, ev.multiply(c, a, b), rlk)),
+        "square_relin": (lambda E: E.square_relin(a, rlk),
+                         lambda: ev.relinearize(c, ev.square(c, a), rlk)),
+        "rescale": (lambda E: E.rescale(a), lambda: ev.rescale_to_next(c, a)),
+        "mod_drop": (lambda E: E.mod_drop(a), lambda: ev.mod_drop_to_next(c, a)),
+        "rotate": (lambda E: E.rotate(a, 1, gk),
+                   lambda: ev.apply_galois_with_key(c, a, elt, gk.key_for_elt(elt))),
+        "conjugate": (lambda E: E.conjugate(a, gk), lambda: ev.conjugate(c, a, gk)),
+    }
+
+
+def _graphs_equal_eager(c, names=None) -> Evaluator:
+    """The capture-and-replay call and a second replay of each method equal
+    the eager op, data and metadata."""
+    x = _graph_case(c, 7)
+    E = Evaluator(c)
+    calls = _evaluator_calls(c, x)
+    for name in names or calls:
+        via, direct = calls[name]
+        want = direct()
+        for got in (via(E), via(E)):
+            assert (got.chain_index, got.scale, got.noise_scale_deg) == (
+                want.chain_index, want.scale, want.noise_scale_deg), name
+            assert torch.equal(got.data, want.data), name
+    return E
+
+
+def test_evaluator_graphs_equal_eager(ctx):
+    assert _graphs_equal_eager(ctx).num_graphs == 15
+
+
+def test_q32_evaluator_graphs_equal_eager(ctx32):
+    assert _graphs_equal_eager(ctx32).num_graphs == 15
+
+
+@pytest.mark.parametrize("word", ["u64", "q32"])
+def test_evaluator_graphs_full_width(gpu, word):
+    """relinearize and rotate through their graphs at N = 2^15 on
+    chip_smoke.py's two chains."""
+    n = 1 << 15
+    if word == "u64":
+        params = EncryptionParameters(SchemeType.ckks, n, tuple(CoeffModulus.create(n, FULL_BITS)),
+                                      special_modulus_size=15, allow_insecure=True)
+    else:
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create_composite(n, **FULL_COMPOSITE)),
+            special_modulus_size=30, composite_degree=2, allow_insecure=True)
+    c = FheContext(params, device=gpu)
+    assert _graphs_equal_eager(c, ["relinearize", "rotate"]).num_graphs == 2
+
+
+def test_evaluator_replay_leaves_earlier_results(ctx):
+    """Results are clones: a replay on new inputs does not touch them."""
+    x = _graph_case(ctx, 8)
+    E = Evaluator(ctx)
+    first = E.relinearize(x["c3"], x["rlk"])
+    kept = first.data.clone()
+    second = E.relinearize(x["c3b"], x["rlk"])
+    assert E.num_graphs == 1
+    assert torch.equal(first.data, kept)
+    assert torch.equal(first.data, ev.relinearize(ctx, x["c3"], x["rlk"]).data)
+    assert torch.equal(second.data, ev.relinearize(ctx, x["c3b"], x["rlk"]).data)
+
+
+def _auto_outputs(c, ct, rlk):
+    """The FLEXIBLEAUTO ops across levels and depths, raise_mod from the
+    anchor level and a degree-13 Chebyshev series (PS, recursing)."""
+    deeper = auto.mod_reduce(c, auto.mult_const_core(c, ct, 2.0), 1)
+    anchor = auto.mod_switch_level(c, ct, len(c.q_values) // auto.composite_degree(c) - 1)
+    coeffs = cheb.eval_chebyshev_coefficients(lambda t: math.sin(2 * t) * math.exp(-t * t),
+                                              -1.0, 1.0, 13)
+    return [auto.mult_const(c, ct, 0.75), auto.add_const(c, ct, -0.5),
+            auto.sub_const(c, ct, 0.25), deeper,
+            auto.eval_mult_auto(c, ct, deeper, rlk), auto.eval_add_auto(c, deeper, ct),
+            auto.eval_square_auto(c, auto.mult_const_core(c, ct, 0.5), rlk),
+            auto.mult_by_monomial(c, ct, 5), auto.mult_by_integer(c, ct, 3),
+            auto.raise_mod(c, anchor),
+            cheb.eval_chebyshev_series(c, ct, rlk, coeffs, -1.0, 1.0)]
+
+
+def _auto_equal_cpu(gpu_ctx):
+    cpu = FheContext(gpu_ctx.params, device="cpu")
+    data, shoup = relin_key_to_np(SecretKey(cpu, seed=3).relin_key())
+    c2 = _draw(cpu, np.random.default_rng(11), 1, 2)
+    outs = []
+    for c in (cpu, gpu_ctx):
+        ct = ciphertext_from_np(c, c2, 1, auto.default_scale(c))
+        outs.append([to_numpy(o.data) for o in
+                     _auto_outputs(c, ct, relin_key_from_np(c, data, shoup))])
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_array_equal(got, want)
+
+
+def test_auto_and_chebyshev_equal_cpu(ctx):
+    _auto_equal_cpu(ctx)
+
+
+def test_q32_auto_and_chebyshev_equal_cpu(gpu):
+    """On a composite chain deep enough for the series (an anchor pair and
+    five data pairs)."""
+    n = 1024
+    cfg = dict(COMPOSITE, levels=5)
+    _auto_equal_cpu(FheContext(EncryptionParameters(
+        SchemeType.ckks, n, tuple(CoeffModulus.create_composite(n, **cfg)),
+        special_modulus_size=cfg["special_count"], composite_degree=2, allow_insecure=True),
+        device=gpu))
+
+
+def test_evaluator_raises_when_capture_fails(ctx, monkeypatch):
+    """A capture that fails raises; the Evaluator never runs the op eagerly
+    instead.  (Last in the file: the failed capture is the test.)"""
+    x = _graph_case(ctx, 9)
+    negate = ev.negate
+
+    def synchronizing(c, a):
+        torch.cuda.synchronize()          # not permitted while a stream captures
+        return negate(c, a)
+
+    monkeypatch.setattr(ev, "negate", synchronizing)
+    E = Evaluator(ctx)
+    with pytest.raises(RuntimeError, match="capture failed"):
+        E.negate(x["a"])
+    assert E.num_graphs == 0

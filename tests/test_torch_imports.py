@@ -1,6 +1,7 @@
 """tpu_fhe_torch and chip_smoke.py import neither jax nor tpu_fhe, and the
-port's slices (the u64 plan's and the q32 plan's modules alike, and the
-rotation path of ops/galois.py and eval/hoisting.py) run with both
+port's slices (the u64 plan's and the q32 plan's modules alike, the
+rotation path of ops/galois.py and eval/hoisting.py, and the evaluation
+layer of eval/auto.py, eval/chebyshev.py and eval/jit.py) run with both
 blocked."""
 
 import re
@@ -104,6 +105,46 @@ def test_rotation_path_runs_with_jax_blocked():
         "assert err(ho.hoisted_rotation_sum(ctx, ct, (0, -1, 4), gk),\n"
         "           x + np.roll(x, 1) + np.roll(x, -4)) < 1e-6\n"
         "assert galois.conj_elt(n) in gk.keys\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_evaluation_layer_runs_with_jax_blocked():
+    """eval/auto.py, eval/chebyshev.py and eval/jit.py on the CPU, in a
+    process where importing jax or tpu_fhe fails: a Chebyshev series
+    through the FLEXIBLEAUTO layer, raise_mod and the Evaluator's eager
+    path."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "import math\n"
+        "import numpy as np\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.eval import auto, chebyshev as cheb\n"
+        "from tpu_fhe_torch.eval.jit import Evaluator\n"
+        "from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "n = 128\n"
+        "ctx = FheContext(EncryptionParameters(SchemeType.ckks, n,\n"
+        "    tuple(CoeffModulus.create(n, [45] + [40] * 5 + [50])), special_modulus_size=1,\n"
+        "    allow_insecure=True), device='cpu')\n"
+        "sk, enc = SecretKey(ctx, seed=1), CkksEncoder(ctx)\n"
+        "rlk = sk.relin_key()\n"
+        "x = np.random.default_rng(0).uniform(-1, 1, n // 2)\n"
+        "ct = sk.encrypt_symmetric(enc.encode(x, auto.default_scale(ctx)))\n"
+        "coeffs = cheb.eval_chebyshev_coefficients(math.exp, -1.0, 1.0, 4)\n"
+        "out = cheb.eval_chebyshev_series(ctx, ct, rlk, coeffs, -1.0, 1.0)\n"
+        "assert np.max(np.abs(enc.decode(sk.decrypt(out)).real - np.exp(x))) < 1e-2\n"
+        "raised = auto.raise_mod(ctx, auto.mod_switch_level(ctx, ct, 5))\n"
+        "assert raised.chain_index == 1\n"
+        "E = Evaluator(ctx)\n"
+        "sq = E.rescale(E.square_relin(ct, rlk))\n"
+        "assert np.max(np.abs(enc.decode(sk.decrypt(sq)).real - x * x)) < 1e-4\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

@@ -69,6 +69,20 @@ def sub(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     return a.with_data(torch.cat([head, mm.neg_mod(b.data[a.size:], q)]))
 
 
+def negate(ctx: FheContext, a: Ciphertext) -> Ciphertext:
+    return a.with_data(mm.neg_mod(a.data, ctx.level(a.chain_index).mod.q))
+
+
+def add_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    head = mm.add_mod(a.data[0], pt.data, ctx.level(a.chain_index).mod.q)
+    return a.with_data(torch.cat([head[None], a.data[1:]]))
+
+
+def sub_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
+    head = mm.sub_mod(a.data[0], pt.data, ctx.level(a.chain_index).mod.q)
+    return a.with_data(torch.cat([head[None], a.data[1:]]))
+
+
 def multiply(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     """NTT-domain tensor product: size-m x size-n -> size (m+n-1),
     c_k = sum_{i+j=k} a_i * b_j; scales multiply."""
@@ -191,7 +205,7 @@ def rescale_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     q_last = level.mod.q[-1:]                  # (1, 1)
     half = q_last >> 1
     last_coeff = inverse_ntt(a.data[:, -1:, :].contiguous(),
-                             level.ntt.slice_limbs([size_Ql - 1]))
+                             ctx.ntt_view(level.ntt, (size_Ql - 1,)))
     # add q_last/2 for rounding, then reduce into each remaining q_i
     last_half = mm.add_mod(last_coeff, half, q_last)
     next_level = ctx.level(a.chain_index + 1)

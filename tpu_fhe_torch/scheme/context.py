@@ -180,6 +180,7 @@ class FheContext:
             [make_ntt_tables(params.log_n, m.value) for m in self.key_modulus], dev, q32)
         self.base_P = RNSBase(tuple(self.key_modulus[size_Q:]))
         self._composite_tables: dict = {}
+        self._ntt_views: dict = {}
 
         key_base = RNSBase(tuple(self.key_modulus))
         self.chain: list[ContextLevel] = [ContextLevel(
@@ -308,9 +309,24 @@ class FheContext:
             self._composite_tables[key] = got
         return got
 
+    def ntt_view(self, tables: DeviceNTTTables, indices: tuple[int, ...]) -> DeviceNTTTables:
+        """``tables.slice_limbs(indices)``, built once per (tables, indices):
+        a later call copies nothing to the device, so it may run while a
+        CUDA graph is captured."""
+        key = (id(tables), tuple(indices))
+        got = self._ntt_views.get(key)
+        if got is None:
+            # the entry holds `tables`, so its id is not reused while cached
+            got = self._ntt_views[key] = (tables, tables.slice_limbs(list(indices)))
+        return got[1]
+
     @property
     def key_level(self) -> ContextLevel:
         return self.chain[0]
+
+    @property
+    def first_data_level(self) -> ContextLevel:
+        return self.chain[1]
 
     def level(self, chain_index: int) -> ContextLevel:
         return self.chain[chain_index]
