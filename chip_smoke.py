@@ -35,7 +35,15 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     plan K11 (the SIMT kernel, off the path since K12 takes k < 64) at 64
     -> 30 and, called directly, at 15 -> 30; on the q32 plan also K4 and
     K5 against K1 and K2 on the same 30-bit moduli, and torch._int_mm on
-    bconv32's int8 operands as a yardstick of its product part;
+    bconv32's int8 operands as a yardstick of its product part; and, once
+    phases 3 to 6 of both plans are done (after every one-launch profile),
+    every kernel of the flagship bootstrap (phase 10) at its widest
+    keyswitch, on phase 10's context at chain index 1 (N = 2^16; u64 26 +
+    13 limbs: K1 on a digit's 26 complement limbs, K2 scaled on (26) and
+    (2, 13), K3 on (2, 26), K12 13 -> 26 on 1 and 2 rows, K8 and K7 on t
+    (2, 39) with keys of 2 digits; q32 52 + 26 limbs: K4 on 52, K5 scaled
+    on (52) and (2, 26), K6 on (2, 52), K13 26 -> 52 on 1 and 2 rows, K10
+    and K9 on t (2, 78));
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
@@ -81,14 +89,42 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
 
 Phases 7 to 9 run for both plans after phases 3 to 6 of both (the graphs,
 then raise_mod, then EvalMod): their profile windows hold many events, and
-a profiler window late in a process can lose some.  Last, the kernels
-line (every kernel of both plans) and the line {"ok": true, "device":
-{...}}.
+a profiler window late in a process can lose some.  The N = 2^15 contexts
+are then freed, and for each plan in turn (the first plan's keys and
+plaintexts freed before the second's are made):
+
+10. the flagship bootstrap, examples/bootstrap_ckks.py --logn 16 (u64:
+    [60] + [59] * 25 + [60] * 13; --q32: create_composite(2^16, 58, 25,
+    degree=2, anchor_bits=30, special_bits=30, special_count=26)), full
+    packing (32768 slots uniform in [-0.8, 0.8]), level budget (4, 4), dim1
+    (8, 8), K = 512, r = 6, degree 88, the input mod-dropped to 2 (u64) or
+    4 (q32) limbs, through the entry points (context, secret key, encoder,
+    CkksBootstrapper setup/keygen/eval_bootstrap, decrypt, decode):
+    setup and keygen seconds, the keys and their form, peak memory, ms
+    per bootstrap and per stage (CUDA events, after a warm-up; the events
+    recorded around each stage method of the bootstrapper while
+    eval_bootstrap runs), a profile window of one
+    bootstrap (device busy and idle share, the port's kernels against
+    the glue), precision bits, levels after and the launches of each
+    kernel in one bootstrap (counters set to 0 just before); fails below
+    the reference's precision less half a bit (14.1 u64, 12.9 q32) or at
+    other than 4 levels after;
+11. at N = 2^12 (level budget (2, 2), the default sine set, three levels
+    after), the dense bootstrap, the sparse one (64 slots) and a
+    two-iteration Meta-BTS through the kernels, each bit-identical to the
+    same through the plain versions and decoding to more than 10 bits.
+
+Each phase's seconds, then the kernels line (every kernel of both plans,
+its launches summed over the requests, rotations, EvalMod, raise_mod and
+the flagship bootstrap, its headline numbers and under "checks" each shape
+it was held at with that shape's ms, plain ms and bound) and the line
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import math
 import subprocess
@@ -181,12 +217,12 @@ def bound_ms(nbytes: float, imads: float, int8_ops: float = 0.0) -> tuple[float,
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def bconv_cost(word: int, batch: int, k: int, m: int) -> dict:
+def bconv_cost(word: int, batch: int, k: int, m: int, n: int = N) -> dict:
     """Bytes, IMADs and int8 operations of one base conversion of `batch`
-    rows, k -> m limbs of N coefficients, in its digit-plane form."""
+    rows, k -> m limbs of n coefficients, in its digit-plane form."""
     planes, epi = BCONV_FORMS[word]
-    return dict(nbytes=word * N * batch * (k + m), imads=batch * m * N * epi,
-                int8_ops=2 * batch * (planes * m) * (planes * k) * N)
+    return dict(nbytes=word * n * batch * (k + m), imads=batch * m * n * epi,
+                int8_ops=2 * batch * (planes * m) * (planes * k) * n)
 
 
 def main() -> int:
@@ -214,6 +250,7 @@ def main() -> int:
     # -- 2. build --------------------------------------------------------
     t0 = time.time()
     logs = _build.build_all()
+    build_s = time.time() - t0
     log(f"[build] {len(logs)} sources compiled in {time.time() - t0:.1f} s "
         f"(0 = already built)")
     for src, text in logs.items():
@@ -221,19 +258,59 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 log(f"[build] {src}: {line.strip()}")
 
+    seconds = {"2": build_s}
+    t0 = time.time()
     plans = [u64_slice(card), q32_slice(card)]
+    seconds["3-6"] = time.time() - t0
+    # -- 3., continued: every kernel of the flagship bootstrap at its widest
+    # keyswitch (N = 2^16), after the one-launch profiles of both plans:
+    # each of these checks captures and replays a CUDA graph, and a
+    # profiler window that comes later in a process can lose events
+    t0 = time.time()
+    for plan in plans:
+        boot_path_checks(plan["tag"], plan["ck"])
+    seconds["3 (2^16)"] = time.time() - t0
     # -- 7.-9. on both plans, after phases 3-6 of both: these phases' profiles
     # hold many events, and a profiler window late in a process can lose
     # some, so they come after every one-launch check, EvalMod's last
+    t0 = time.time()
     for plan in plans:
         graph_phase(plan["tag"], plan["ctx"], plan["ck"], plan["rlk"], plan.pop("gk"), card)
+    seconds["7"] = time.time() - t0
+    t0 = time.time()
     for plan in plans:
         plan["raised"] = raise_mod_phase(plan["tag"], plan["ctx"], plan["ck"], plan["sk"])
+    seconds["9"] = time.time() - t0
+    t0 = time.time()
+    for plan in plans:
+        plan["emod"] = eval_mod_phase(plan["tag"], plan["ctx"], plan["ck"], plan["sk"],
+                                      plan["rlk"], plan["sine"], plan["off_path"], card)
+        # the N = 2^15 context and keys are done with: free them for phase 10
+        for name in ("ctx", "sk", "rlk"):
+            del plan[name]
+    seconds["8"] = time.time() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    # -- 10. the flagship bootstrap, one plan after the other (the first plan's
+    # keys and plaintexts are freed before the second's are made)
+    t0 = time.time()
+    for plan in plans:
+        plan["boot"] = flagship_phase(plan["tag"], plan["ck"], card)
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds["10"] = time.time() - t0
+    # -- 11. the bootstrap through the kernels == through the plain versions
+    t0 = time.time()
+    for plan in plans:
+        bootstrap_plain_phase(plan["tag"], plan["ck"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds["11"] = time.time() - t0
+    log("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     line = []
     for plan in plans:
-        emod = eval_mod_phase(plan["tag"], plan["ctx"], plan["ck"], plan["sk"], plan["rlk"],
-                              plan["sine"], plan["off_path"], card)
-        line += plan["ck"].line({name: count + emod[name] + plan["raised"][name]
+        line += plan["ck"].line({name: count + plan["emod"][name] + plan["raised"][name]
+                                 + plan["boot"][name]
                                  for name, count in plan["launches"].items()})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -269,7 +346,8 @@ class Checker:
             f"{called:.4f} ms called from Python)  plain {plain:.3f} ms  "
             f"bound {bms:.4f} ms ({by})")
         entry = self.report[name]
-        entry["checks"].append(shape)
+        entry["checks"].append(dict(shape=shape, ms=ms, plain_ms=plain, bound_ms=bms,
+                                    bound_by=by))
         if headline or "ms" not in entry:
             entry.update(ms=ms, plain_ms=plain, bound_ms=bms, bound_by=by)
 
@@ -295,7 +373,7 @@ class Checker:
                 "name": name, "route": "cuda", "source": f"tpu_fhe_torch/csrc/{k.source}",
                 "replaces": file_line, "launches": launches[name], "max_abs_err": 0,
                 "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
-                "bound_by": e["bound_by"], "library_ms": None, "shapes": e["checks"],
+                "bound_by": e["bound_by"], "library_ms": None, "checks": e["checks"],
             })
         return out
 
@@ -924,13 +1002,14 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def same_as_plain(tag: str, what: str, ck: Checker, run) -> None:
+def same_as_plain(tag: str, what: str, ck: Checker, run) -> list:
     """`run()` (a list of ciphertexts) through the kernels equals the same
     through the plain versions, bit for bit; the plain run launches
-    nothing."""
+    nothing.  Returns the kernels' run."""
     import torch
 
-    got = [c.data for c in run()]
+    outs = run()
+    got = [c.data for c in outs]
     ck.reset()
     with plain_versions():
         want = [c.data for c in run()]
@@ -940,6 +1019,7 @@ def same_as_plain(tag: str, what: str, ck: Checker, run) -> None:
     if not all(torch.equal(g, w) for g, w in zip(got, want)):
         fail(f"{tag} {what} through the kernels differs from the plain versions")
     log(f"[{tag} slice] {what}: kernels == plain versions, bit for bit")
+    return outs
 
 
 def rotation_phase(tag: str, ctx, ck: Checker, sk, scale: float, keep: int, off_path: tuple,
@@ -1146,46 +1226,11 @@ UNIFORM_SINE = (512, 6, 88)              # the default, uniform ternary secret
 EVALMOD_TOL = 1e-5
 
 
-def sine_coefficients(k: int, r: int, degree: int) -> list[float]:
-    """Chebyshev coefficients of (2 pi)^(-1/2^r) cos(2 pi / 2^r (k x - 1/4))
-    on [-1, 1] (tpu_fhe/boot/bootstrap.py:38-45)."""
-    from tpu_fhe_torch.eval import chebyshev as cheb
-
-    scale = (2 * math.pi) ** (-1.0 / (1 << r))
-
-    def f(x):
-        return scale * math.cos(2 * math.pi / (1 << r) * (k * x - 0.25))
-
-    return cheb.eval_chebyshev_coefficients(f, -1.0, 1.0, degree)
-
-
-def double_angle_constant(j: int, r: int) -> float:
-    return -1.0 / math.pow(2.0 * math.pi, math.pow(2.0, j - r))
-
-
-def eval_mod(ctx, ct, rlk, coeffs: list[float], r: int, step=None):
-    """The bootstrap's sine stage (tpu_fhe/boot/bootstrap.py:500-510,
-    669-674): the Chebyshev series, one mod_reduce, then r double angles
-    y <- 2 y^2 - (2 pi)^(-2^(j - r)).  `step(name)` is called after each
-    of the three."""
-    from tpu_fhe_torch.eval import auto, chebyshev as cheb
-
-    step = step or (lambda name: None)
-    out = cheb.eval_chebyshev_series(ctx, ct, rlk, coeffs, -1.0, 1.0)
-    step("Chebyshev series")
-    out = auto.mod_reduce(ctx, out, 1)
-    step("mod_reduce")
-    for j in range(1, r + 1):
-        out = auto.eval_square_auto(ctx, out, rlk)
-        out = auto.eval_add_auto(ctx, out, out)
-        out = auto.add_const(ctx, out, double_angle_constant(j, r))
-    step("double angle")
-    return out
-
-
 def eval_mod_clear(x: np.ndarray, coeffs: list[float], r: int) -> np.ndarray:
     """The same polynomial and recurrence in float64 (the c0/2 convention
     of eval/chebyshev.py)."""
+    from tpu_fhe_torch.boot.bootstrap import double_angle_constant
+
     c = np.array(coeffs, dtype=np.float64)
     c[0] /= 2
     y = np.polynomial.chebyshev.chebval(x, c)
@@ -1204,11 +1249,12 @@ def eval_mod_phase(tag: str, ctx, ck: Checker, sk, rlk, sine: tuple, off_path: t
     the launch counts of the counted run."""
     import torch
 
+    from tpu_fhe_torch.boot.bootstrap import eval_mod, gen_sine_coefficients
     from tpu_fhe_torch.eval import auto
     from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
 
     k, r, degree = sine
-    coeffs = sine_coefficients(k, r, degree)
+    coeffs = gen_sine_coefficients(k, r, degree)
     enc = CkksEncoder(ctx)
     x = np.random.default_rng(12).uniform(-1.0, 1.0, N // 2)
     ct = sk.encrypt_symmetric(enc.encode(x, auto.default_scale(ctx)))
@@ -1291,6 +1337,383 @@ def raise_mod_phase(tag: str, ctx, ck: Checker, sk) -> dict:
     log(f"[{tag} raise_mod] composed coefficients: raised - anchor level are multiples of "
         f"Qa ({qa.bit_length()} bits), {wraps} of {N} nonzero")
     return launches
+
+
+# --------------------------------------------------------------------------
+# the bootstrap: the flagship at N = 2^16, and the kernels against the plain
+# versions at N = 2^12
+# --------------------------------------------------------------------------
+
+BOOT_N = 1 << 16
+BOOT_BUDGET, BOOT_DIM1 = (4, 4), (8, 8)
+# the reference's precision at this configuration (measurements/r03/
+# boot16_60bit.log:7, boot16_q32_s58d.log:8) less half a bit, and its levels
+# after the bootstrap
+BOOT_MIN_BITS = {"u64": 14.1, "q32": 12.9}
+BOOT_LEVELS_AFTER = 4
+BOOT_DROP_TO = {"u64": 2, "q32": 4}      # input limbs (examples/bootstrap_ckks.py:173-178)
+SMALL_N, SMALL_SLOTS = 1 << 12, 64
+BOOT11_MIN_BITS = 10.0                   # examples/bootstrap_ckks.py:203's assertion
+META_PRECISION = 12
+# the port's kernels in a profile (every other device kernel is glue)
+PORT_KERNELS = ("fwd_cluster", "inv_cluster", "bconv", "ks_kernel", "ks32_kernel",
+                "ks_shoup_kernel")
+
+
+def boot_context(plan: str, n: int, sine: tuple, budget: tuple, levels_after: int):
+    """examples/bootstrap_ckks.py's context for `plan` (u64, or --q32) at ring
+    size n: depth = levels_after + the sine's depth + sum(budget) + 2
+    (:114-117); u64 [60] + [59] * depth + [60] * P with P = ceil((depth + 1)
+    / 2); q32 create_composite(n, 58, depth, degree=2, anchor_bits=30,
+    special_bits=30, special_count=depth + 1)."""
+    from tpu_fhe_torch.boot.bootstrap import gen_sine_coefficients
+    from tpu_fhe_torch.core.modulus import CoeffModulus
+    from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
+    from tpu_fhe_torch.eval import chebyshev as cheb
+    from tpu_fhe_torch.scheme.context import FheContext
+
+    approx = cheb.get_mult_depth_by_coeff_vector(gen_sine_coefficients(*sine),
+                                                 normalized=False) + sine[1]
+    depth = levels_after + approx + sum(budget) + 2
+    if plan == "q32":
+        size_p = depth + 1
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create_composite(
+                n, 58, depth, degree=2, anchor_bits=30, special_bits=30, special_count=size_p)),
+            special_modulus_size=size_p, composite_degree=2, allow_insecure=True)
+    else:
+        size_p = max(2, -(-(depth + 1) // 2))
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create(n, [60] + [59] * depth + [60] * size_p)),
+            special_modulus_size=size_p, allow_insecure=True)
+    return FheContext(params)
+
+
+def boot_path_checks(tag: str, ck: Checker) -> None:
+    """Phase 3 at the flagship bootstrap's widest keyswitch: phase 10's
+    context at chain index 1 (u64 26 + 13 limbs, q32 52 + 26, dnum 2, N =
+    2^16), on that context's own tables.  Each kernel of the bootstrap's path
+    against its plain version at the shapes the path launches it: modup's
+    forward NTT of a digit's complement and base conversion of a digit,
+    the level's and P's scaled inverse NTTs, moddown's base conversion of
+    P and its landing, and the inner products with a key of dnum digits,
+    with Shoup words (the relin key; the Galois keys too on the q32 plan
+    when keygen picks them) and without (the u64 plan's Galois keys)."""
+    from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+
+    t0 = time.time()
+    ctx = boot_context(tag, BOOT_N, UNIFORM_SINE, BOOT_BUDGET, levels_after=1)
+    q32 = ctx.is_q32
+    n, word, sfx = BOOT_N, 4 if q32 else 8, f"2^{BOOT_N.bit_length() - 1}"
+    per_mul = IMAD_PER_MUL32 if q32 else IMAD_PER_MUL64
+    suffix = "32" if q32 else ""
+    level = ctx.level(1)
+    kst = level.ks
+    L, P, beta = level.size, kst.p_ntt.num_limbs, kst.beta
+    qlp_n = L + P
+    dnum = -(-ctx.params.size_Q // ctx.params.size_P)
+    log(f"[{tag} kernels] the flagship bootstrap's chain index 1 (N={sfx}, {L} + {P} limbs, "
+        f"dnum {dnum}): context {time.time() - t0:.1f} s")
+    residues = residue_maker(ctx.device, n, 2090)
+    dig = kst.digits[0]
+    comp, m, k_in = dig.comp_ntt, dig.comp_mod.q.shape[0], dig.end - dig.start
+    x = residues(comp.q)
+    ck.check(f"ntt_fwd{suffix}", f"({m}, {sfx}) digit complement",
+             lambda: ntt.forward_ntt(x, comp), lambda: ntt.forward_ntt_plain(x, comp),
+             *ntt_cost(word, m, m, n=n))
+    xl = residues(level.mod.q)
+    scale = (kst.part_qhatinv, kst.part_qhatinv_shoup)
+    ck.check(f"ntt_inv{suffix}", f"({L}, {sfx}) scaled",
+             lambda: ntt.inverse_ntt_scaled(xl, level.ntt, *scale),
+             lambda: ntt.inverse_ntt_plain(xl, level.ntt, *scale),
+             *ntt_cost(word, L, L, extra_muls=2, n=n))
+    xp = residues(kst.p_mod.q, 2)
+    pscale = (kst.p_hatinv, kst.p_hatinv_shoup)
+    ck.check(f"ntt_inv{suffix}", f"(2, {P}, {sfx}) scaled",
+             lambda: ntt.inverse_ntt_scaled(xp, kst.p_ntt, *pscale),
+             lambda: ntt.inverse_ntt_plain(xp, kst.p_ntt, *pscale),
+             *ntt_cost(word, 2 * P, P, extra_muls=2, n=n))
+    xs, sub = residues(level.mod.q, 2), residues(level.mod.q, 2)
+    post = (kst.big_pinv_mod_q, kst.big_pinv_mod_q_shoup)
+    ck.check(f"ntt_fwd_landing{suffix}", f"(2, {L}, {sfx})",
+             lambda: ntt.forward_ntt_sub_scale(xs, sub, level.ntt, *post),
+             lambda: ntt.forward_ntt_sub_scale_plain(xs, sub, level.ntt, *post),
+             word * n * (3 * 2 * L + 2 * L), ntt_cost(word, 2 * L, L, extra_muls=1, n=n)[1])
+    if q32:
+        conv, conv_plain = bconv.bconv_matmul32, bconv.bconv_matmul32_plain
+        dtab = (dig.qhat_mod_p, dig.comp_mod.q, dig.comp_mod.fold, dig.qhat_mod_p_diag)
+        ptab = (kst.p_hat_mod_q, level.mod.q, level.mod.fold, kst.p_hat_mod_q_diag)
+    else:
+        conv, conv_plain = bconv.bconv_matmul, bconv.bconv_matmul_plain
+        dtab = (dig.qhat_mod_p, dig.comp_mod.q, dig.comp_mod.ratio_lo, dig.comp_mod.ratio_hi,
+                dig.qhat_mod_p_diag)
+        ptab = (kst.p_hat_mod_q, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi,
+                kst.p_hat_mod_q_diag)
+    name = "bconv32" if q32 else "bconv_mxu"
+    s = residues(level.mod.q[dig.start:dig.end])
+    ck.check(name, f"{k_in} -> {m}, ({k_in}, {sfx})", lambda: conv(s, *dtab),
+             lambda: conv_plain(s, *dtab), **bconv_cost(word, 1, k_in, m, n))
+    s2 = residues(kst.p_mod.q, 2)
+    ck.check(name, f"{P} -> {L}, (2, {P}, {sfx})", lambda: conv(s2, *ptab),
+             lambda: conv_plain(s2, *ptab), **bconv_cost(word, 2, P, L, n))
+    qlp, rows, kq = kst.qlp_mod, kst.qlp_key_rows, ctx.key_level.mod
+    t = residues(qlp.q, beta)
+    evk = residues(kq.q, dnum, 2)
+    evk_s = mm.shoup32_of(evk, kq.q) if q32 else mm.shoup_of(evk, kq.q, kq.ratio_lo,
+                                                              kq.ratio_hi)
+    shape = f"t ({beta}, {qlp_n}, {sfx}), key ({dnum}, 2, {kq.q.shape[0]}, {sfx})"
+    ck.check(f"key_inner_prod_shoup{suffix}", shape,
+             lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp.q),
+             lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp.q),
+             word * n * (beta * qlp_n + 2 * 2 * beta * qlp_n + 2 * qlp_n),
+             3 * 2 * beta * qlp_n * n * per_mul)
+    # without Shoup words: per output word beta products into the wide
+    # accumulator and one landing (u64: 64x64 -> 128 products and Barrett's
+    # 6; q32: 32x32 -> 64 products and the word fold's 7)
+    if q32:
+        kip, kip_plain, kargs = ks.key_inner_prod32, ks.key_inner_prod32_plain, (rows, qlp.q,
+                                                                                 qlp.fold)
+        imads = 2 * qlp_n * n * (beta * IMAD_PER_WIDE32 + 7 * IMAD_PER_MUL32)
+    else:
+        kip, kip_plain = ks.key_inner_prod, ks.key_inner_prod_plain
+        kargs = (rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi)
+        imads = 2 * qlp_n * n * (2 * beta + 6) * IMAD_PER_MUL64
+    ck.check(f"key_inner_prod{suffix}", shape, lambda: kip(t, evk, *kargs),
+             lambda: kip_plain(t, evk, *kargs),
+             word * n * (beta * qlp_n + 2 * beta * qlp_n + 2 * qlp_n), imads)
+    del x, xl, xp, xs, sub, s, s2, t, evk, evk_s, ctx
+    log(f"[{tag} kernels] the flagship's shapes checked in {time.time() - t0:.1f} s")
+
+
+def boot_input(tag: str, ctx, enc, sk, slots: int, seed: int = 0):
+    """`slots` values uniform in [-0.8, 0.8] from np.random.default_rng(seed),
+    encrypted at the ladder's first scale and mod-dropped to the plan's input
+    limbs."""
+    from tpu_fhe_torch.eval import auto, evaluator as ev
+
+    x = np.random.default_rng(seed).uniform(-0.8, 0.8, slots)
+    ct = sk.encrypt_symmetric(enc.encode(x, auto.default_scale(ctx), slots=slots))
+    while ctx.level(ct.chain_index).size > BOOT_DROP_TO[tag]:
+        ct = ev.mod_drop_to_next(ctx, ct)
+    return x, ct
+
+
+DENSE_STAGES = ("prelude", "coeffs_to_slots", "conj_split", "eval_mod", "recombine",
+                "slots_to_coeffs", "correct")
+
+
+def stage_ms(boot, run) -> dict:
+    """Run `run()`, a dense bootstrap through `boot`, with a CUDA event pair
+    around each call of a stage method of `boot` (DENSE_STAGES, the methods
+    eval_bootstrap calls on the dense path) and each part of EvalMod.
+    Returns ms by stage in the order the stages ended; EvalMod's first call
+    is the real part's, its second the imaginary part's."""
+    import torch
+
+    events = []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def timed(name, fn):
+        def call(*args):
+            start = event()
+            out = fn(*args)
+            events.append((name, start, event()))
+            return out
+        return call
+
+    def eval_mod(fn):
+        calls = []
+
+        def call(ct):
+            branch = ("re", "im")[len(calls)]
+            calls.append(branch)
+            marks = [("start", event())]
+            out = fn(ct, lambda part: marks.append((part, event())))
+            for (_, a), (part, b) in zip(marks, marks[1:]):
+                events.append((f"  eval_mod ({branch}) {part}", a, b))
+            events.append((f"eval_mod ({branch})", marks[0][1], event()))
+            return out
+        return call
+
+    for name in DENSE_STAGES:
+        fn = getattr(boot, name)
+        setattr(boot, name, eval_mod(fn) if name == "eval_mod" else timed(name, fn))
+    try:
+        run()
+    finally:
+        for name in DENSE_STAGES:
+            delattr(boot, name)
+    torch.cuda.synchronize()
+    return {name: a.elapsed_time(b) for name, a, b in events}
+
+
+def profile_bootstrap(tag: str, run, ms: float) -> None:
+    """A device-only profile of one bootstrap: the window (CUDA events), the
+    device's busy time and idle share, the port's kernels against the glue,
+    and the kernels with the most device time.  Tracing slows the host's
+    enqueue, so the window is longer than an untraced bootstrap (`ms`);
+    the idle share against `ms` is printed beside it."""
+    import torch
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def window():
+        start.record()
+        run()
+        end.record()
+        end.synchronize()
+
+    device = device_kernels(window)
+    window_ms = start.elapsed_time(end)
+    busy = sum(e.self_device_time_total for e in device) / 1e3
+    ours = sum(e.self_device_time_total for e in device
+               if any(k in e.key for k in PORT_KERNELS)) / 1e3
+    if busy <= 0:
+        log(f"[{tag} bootstrap profile] the profiler saw no device time: idle share not measured")
+        return
+    log(f"[{tag} bootstrap profile] one bootstrap: window {window_ms:.3f} ms, device busy "
+        f"{busy:.3f} ms ({100 * busy / window_ms:.1f}%), idle "
+        f"{100 * (1 - busy / window_ms):.1f}% (against the untraced {ms:.3f} ms: "
+        f"{100 * (1 - busy / ms):.1f}%); the port's kernels {ours:.3f} ms, glue "
+        f"{busy - ours:.3f} ms in {sum(e.count for e in device)} device kernels")
+    for e in sorted(device, key=lambda e: -e.self_device_time_total)[:14]:
+        log(f"[{tag} bootstrap profile]   {e.self_device_time_total / 1e3:.3f} ms  "
+            f"{e.count} calls  {e.key[:90]}")
+
+
+def flagship_phase(tag: str, ck: Checker, card: str) -> dict:
+    """Phase 10: the flagship bootstrap at N = 2^16, full packing (32768
+    slots), level budget (4, 4), dim1 (8, 8), the default sine set K = 512,
+    r = 6, degree 88, through the entry points: context, secret key,
+    encoder, CkksBootstrapper setup/keygen/eval_bootstrap, decrypt, decode.
+    Prints setup and keygen seconds, the keys and their form, peak memory,
+    ms per bootstrap and per stage (CUDA events, after one warm-up call),
+    the idle share of a profile window, precision bits, levels after and
+    the launches of each kernel in one bootstrap; fails below the
+    reference's precision less half a bit or at other than 4 levels after.
+    Returns the launch counts of the counted run."""
+    import torch
+
+    from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper, precision_bits
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ctx = boot_context(tag, BOOT_N, UNIFORM_SINE, BOOT_BUDGET, levels_after=1)
+    sk, enc = SecretKey(ctx, seed=2024), CkksEncoder(ctx)
+    boot = CkksBootstrapper(ctx, enc)
+    boot.set_sine_params(*UNIFORM_SINE)
+    slots = BOOT_N // 2
+    torch.cuda.synchronize()
+    t1 = time.time()
+    boot.setup(level_budget=BOOT_BUDGET, dim1=BOOT_DIM1, slots=slots)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    boot.keygen(sk, slots)
+    torch.cuda.synchronize()
+    t3 = time.time()
+    pre = boot.precom[slots]
+    n_pts = sum(pt is not None for table in (pre.a_c2s, pre.a_s2c) for row in table for pt in row)
+    key = next(iter(boot.galois_keys.keys.values()))
+    kernel = ("K10 (key_inner_prod_shoup32)" if boot.key_shoup else "K9 (key_inner_prod32)") \
+        if ctx.is_q32 else "K7 (key_inner_prod)"
+    log(f"[{tag} bootstrap] N=2^{BOOT_N.bit_length() - 1}, {ctx.params.size_Q} + "
+        f"{ctx.params.size_P} limbs, {slots} slots, budget {BOOT_BUDGET}, dim1 {BOOT_DIM1}, "
+        f"sine {UNIFORM_SINE}: context "
+        f"{t1 - t0:.1f} s, setup {t2 - t1:.1f} s ({n_pts} plaintexts), keygen {t3 - t2:.1f} s")
+    log(f"[{tag} bootstrap] {len(boot.galois_keys.keys)} Galois keys {tuple(key.data.shape)} "
+        f"{key.data.dtype}, Shoup words: {boot.key_shoup} (their inner product: {kernel}), "
+        f"memory budget {boot.memory_budget() / 2**30:.1f} GiB; peak device memory after "
+        f"setup and keygen {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    x, ct = boot_input(tag, ctx, enc, sk, slots)
+    torch.cuda.synchronize()
+    ck.reset()
+    t0 = time.time()
+    out = boot.eval_bootstrap(ct, slots)
+    torch.cuda.synchronize()
+    first_s = time.time() - t0
+    launches = ck.launches()
+    got = enc.decode(sk.decrypt(out), slots=slots).real
+    if got.shape != (slots,) or not np.all(np.isfinite(got)):
+        fail(f"{tag} bootstrap: decoded {got.shape} with non-finite values")
+    bits = precision_bits(got, x)
+    levels = (len(ctx.chain) - 1 - out.chain_index) // ctx.params.composite_degree
+    log(f"[{tag} bootstrap] first call {first_s:.2f} s (host clock); precision {bits:.3f} bits "
+        f"(limit {BOOT_MIN_BITS[tag]}), levels after {levels}, chain index {ct.chain_index} -> "
+        f"{out.chain_index}; peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB")
+    if not bits >= BOOT_MIN_BITS[tag]:
+        fail(f"{tag} bootstrap: precision {bits:.3f} bits < {BOOT_MIN_BITS[tag]}")
+    if levels != BOOT_LEVELS_AFTER:
+        fail(f"{tag} bootstrap: {levels} levels after, not {BOOT_LEVELS_AFTER}")
+    log(f"[{tag} bootstrap] launches in one bootstrap: {launches}")
+    # K11 serves k >= 64 only; with Shoup-form Galois keys K10 serves every
+    # inner product of the q32 plan
+    off_path = ("bconv", "key_inner_prod32") if boot.key_shoup else ("bconv",)
+    ck.require_launched(f"{tag} bootstrap", launches, off_path)
+
+    def run():
+        return boot.eval_bootstrap(ct, slots)
+
+    ms = cuda_ms(run, reps=1, samples=3)
+    log(f"[{tag} bootstrap] {ms:.3f} ms per bootstrap (CUDA events, median of 3 after a "
+        f"warm-up) on {card}")
+    stages = stage_ms(boot, run)
+    log(f"[{tag} bootstrap] ms per stage (CUDA events around each stage method in one "
+        f"eval_bootstrap): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
+    profile_bootstrap(tag, run, ms)
+    log(f"[{tag} bootstrap] peak device memory after one bootstrap "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    return launches
+
+
+def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
+    """Phase 11: at N = 2^12 (examples/bootstrap_ckks.py --logn 12 --levels-after
+    3: level budget (2, 2), the default sine set K = 512, r = 6, degree 88),
+    the dense bootstrap, the sparse one (64 slots) and a two-iteration
+    Meta-BTS through the kernels, each bit-identical to the same through the
+    plain versions, each decoding to at least BOOT11_MIN_BITS, and the
+    Meta-BTS not returning its input.  The example takes the sparse set
+    K = 28, r = 3, degree 44 up to 2^13, but with a uniform ternary secret
+    the integer part of the raised plaintext passes K from 2^11 on and the
+    sine's Chebyshev series is evaluated outside [-1, 1]: the output does not
+    decode.  Three levels after leave Meta-BTS levels to work with."""
+    import torch
+
+    from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper, precision_bits
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    t0 = time.time()
+    ctx = boot_context(tag, SMALL_N, UNIFORM_SINE, (2, 2), levels_after=3)
+    sk, enc = SecretKey(ctx, seed=2025), CkksEncoder(ctx)
+    for slots, runs in ((SMALL_N // 2, (1, 2)), (SMALL_SLOTS, (1,))):
+        boot = CkksBootstrapper(ctx, enc)
+        boot.setup(level_budget=(2, 2), slots=slots)
+        boot.keygen(sk, slots)
+        for iterations in runs:
+            x, ct = boot_input(tag, ctx, enc, sk, slots, seed=slots + iterations)
+            precision = META_PRECISION if iterations > 1 else 0
+            what = (f"N=2^12 bootstrap, {slots} slots" +
+                    (f", Meta-BTS {iterations} iterations" if iterations > 1 else ""))
+            out, = same_as_plain(tag, what, ck, lambda: [
+                boot.eval_bootstrap(ct, slots, iterations, precision)])
+            if out is ct:
+                fail(f"{tag} {what}: returned its input")
+            bits = precision_bits(enc.decode(sk.decrypt(out), slots=slots).real, x)
+            log(f"[{tag} bootstrap] {what}: precision {bits:.3f} bits, chain index "
+                f"{ct.chain_index} -> {out.chain_index}")
+            if not bits >= BOOT11_MIN_BITS:
+                fail(f"{tag} {what}: precision {bits:.3f} bits < {BOOT11_MIN_BITS}")
+    torch.cuda.synchronize()
+    log(f"[{tag} bootstrap] phase 11 in {time.time() - t0:.1f} s")
 
 
 if __name__ == "__main__":

@@ -5,10 +5,12 @@ one-cluster-launch transforms (K1-K6) at every ring size from 2^10 to
 2^17, the tensor-core base conversions (K12, K13) over their ranges of
 inputs and outputs, and each slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum;
-the FLEXIBLEAUTO ops, raise_mod and a Chebyshev series) on the card
-against the same slice on the CPU.  Every method of the graph-replaying
-Evaluator equals the eager op through its CUDA graph, at small rings and
-at 2^15, and raises when its capture fails.
+the FLEXIBLEAUTO ops, raise_mod and a Chebyshev series; the encoder's QlP
+plaintexts) on the card against the same slice on the CPU, and one N = 2^12
+bootstrap through the kernels against the same through the plain
+versions.  Every method of the graph-replaying Evaluator equals the eager
+op through its CUDA graph, at small rings and at 2^15, and raises when its
+capture fails.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
 nvcc; without a card they skip.  They import neither jax nor tpu_fhe, so
@@ -876,6 +878,96 @@ def test_q32_auto_and_chebyshev_equal_cpu(gpu):
         SchemeType.ckks, n, tuple(CoeffModulus.create_composite(n, **cfg)),
         special_modulus_size=cfg["special_count"], composite_degree=2, allow_insecure=True),
         device=gpu))
+
+
+@pytest.mark.parametrize("word", ["u64", "q32"])
+def test_encode_ext_batch_equals_cpu(gpu, word):
+    """The encoder's QlP plaintexts (encode_ext_batch and encode_ext, full
+    and sparse slot vectors) on the card equal the same on the CPU."""
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+
+    n = 4096
+    if word == "q32":
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create_composite(n, **COMPOSITE)),
+            special_modulus_size=COMPOSITE["special_count"], composite_degree=2,
+            allow_insecure=True)
+    else:
+        params = EncryptionParameters(SchemeType.ckks, n, tuple(CoeffModulus.create(n, BITS)),
+                                      special_modulus_size=2, allow_insecure=True)
+    rng = np.random.default_rng(5)
+    vecs = [rng.uniform(-1, 1, s) + 1j * rng.uniform(-1, 1, s) for s in (n // 2, 64, 16, n // 2)]
+    outs = []
+    for dev in ("cpu", gpu):
+        enc = CkksEncoder(FheContext(params, device=dev))
+        pts = enc.encode_ext_batch(vecs, 2.0 ** 40, chain_index=2)
+        pts.append(enc.encode_ext(vecs[1], 2.0 ** 40, chain_index=1))
+        outs.append([to_numpy(p.data) for p in pts])
+    for got, want in zip(outs[1], outs[0]):
+        np.testing.assert_array_equal(got, want)
+
+
+def _boot_params(word, n):
+    """examples/bootstrap_ckks.py's context at ring size n with the default
+    sine set and level budget (2, 2): depth 1 + 14 + 4 + 2 (one level after,
+    the sine's depth 8 + 6, the budget, 2)."""
+    depth = 21
+    if word == "q32":
+        return EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create_composite(
+                n, 58, depth, degree=2, anchor_bits=30, special_bits=30,
+                special_count=depth + 1)),
+            special_modulus_size=depth + 1, composite_degree=2, allow_insecure=True)
+    size_p = (depth + 2) // 2
+    return EncryptionParameters(
+        SchemeType.ckks, n, tuple(CoeffModulus.create(n, [60] + [59] * depth + [60] * size_p)),
+        special_modulus_size=size_p, allow_insecure=True)
+
+
+@pytest.mark.parametrize("word", ["u64", "q32"])
+def test_bootstrap_kernels_equal_plain(gpu, word, monkeypatch):
+    """One N = 2^12 dense bootstrap (the default sine set: the sparse set's
+    K = 28 is too small for a uniform ternary secret at this ring) through
+    the kernels equals the same with the evaluator's and auto's kernel
+    wrappers swapped for the plain versions, bit for bit, and decodes to more
+    than 10 bits of mean precision."""
+    from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper, precision_bits
+    from tpu_fhe_torch.ops._build import CudaKernel
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+
+    c = FheContext(_boot_params(word, 4096), device=gpu)
+    sk, enc = SecretKey(c, seed=4), CkksEncoder(c)
+    boot = CkksBootstrapper(c, enc)
+    boot.setup(level_budget=(2, 2))
+    boot.keygen(sk)
+    x = np.random.default_rng(6).uniform(-0.8, 0.8, c.n // 2)
+    ct = sk.encrypt_symmetric(enc.encode(x, auto.default_scale(c)))
+    while c.level(ct.chain_index).size > 2 * c.params.composite_degree:
+        ct = ev.mod_drop_to_next(c, ct)
+    got = boot.eval_bootstrap(ct)
+    assert precision_bits(enc.decode(sk.decrypt(got)).real, x) > 10
+    swaps = dict(forward_ntt=ntt.forward_ntt_plain, inverse_ntt=ntt.inverse_ntt_plain,
+                 inverse_ntt_scaled=ntt.inverse_ntt_plain,
+                 forward_ntt_sub_scale=ntt.forward_ntt_sub_scale_plain,
+                 bconv_matmul=bconv.bconv_matmul_plain,
+                 bconv_matmul32=bconv.bconv_matmul32_plain,
+                 key_inner_prod=ks.key_inner_prod_plain,
+                 key_inner_prod32=ks.key_inner_prod32_plain,
+                 key_inner_prod_shoup=ks.key_inner_prod_shoup_plain)
+    for mod in (ev, auto):
+        for name, fn in swaps.items():
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, fn)
+    kernels = [k for mod in (ntt, bconv, ks) for k in vars(mod).values()
+               if isinstance(k, CudaKernel)]
+    for k in kernels:
+        k.launches = 0
+    want = boot.eval_bootstrap(ct)
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in kernels if k.launches} == {}, \
+        "the run through the plain versions launched kernels"
+    assert (got.chain_index, got.scale) == (want.chain_index, want.scale)
+    assert torch.equal(got.data, want.data)
 
 
 def test_evaluator_raises_when_capture_fails(ctx, monkeypatch):

@@ -1,8 +1,9 @@
 """tpu_fhe_torch and chip_smoke.py import neither jax nor tpu_fhe, and the
 port's slices (the u64 plan's and the q32 plan's modules alike, the
-rotation path of ops/galois.py and eval/hoisting.py, and the evaluation
-layer of eval/auto.py, eval/chebyshev.py and eval/jit.py) run with both
-blocked."""
+rotation path of ops/galois.py and eval/hoisting.py, the evaluation layer
+of eval/auto.py, eval/chebyshev.py and eval/jit.py, and the bootstrap of
+boot/boot_math.py and boot/bootstrap.py with the encoder's QlP forms) run
+with both blocked."""
 
 import re
 import subprocess
@@ -145,6 +146,45 @@ def test_evaluation_layer_runs_with_jax_blocked():
         "E = Evaluator(ctx)\n"
         "sq = E.rescale(E.square_relin(ct, rlk))\n"
         "assert np.max(np.abs(enc.decode(sk.decrypt(sq)).real - x * x)) < 1e-4\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_bootstrap_runs_with_jax_blocked():
+    """boot/bootstrap.py (setup with the encoder's QlP plaintexts and sparse
+    encode, keygen, the sparse eval_bootstrap) on a q32 context at N = 64 on
+    the CPU, in a process where importing jax or tpu_fhe fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "import numpy as np\n"
+        "from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.eval import auto, evaluator as ev\n"
+        "from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "n, slots = 64, 8\n"
+        "mods = CoeffModulus.create_composite(n, 56, 15, degree=2, anchor_bits=30,\n"
+        "                                     special_bits=30, special_count=4)\n"
+        "ctx = FheContext(EncryptionParameters(SchemeType.ckks, n, tuple(mods),\n"
+        "    special_modulus_size=4, composite_degree=2, allow_insecure=True), device='cpu')\n"
+        "sk, enc = SecretKey(ctx, seed=1), CkksEncoder(ctx)\n"
+        "boot = CkksBootstrapper(ctx, enc)\n"
+        "boot.set_sine_params(28, 3, 44)\n"
+        "boot.setup(level_budget=(2, 2), slots=slots)\n"
+        "boot.keygen(sk, slots)\n"
+        "x = np.random.default_rng(0).uniform(-0.8, 0.8, slots)\n"
+        "ct = sk.encrypt_symmetric(enc.encode(x, auto.default_scale(ctx), slots=slots))\n"
+        "while ctx.level(ct.chain_index).size > 4:\n"
+        "    ct = ev.mod_drop_to_next(ctx, ct)\n"
+        "out = boot.eval_bootstrap(ct, slots)\n"
+        "assert out.chain_index < ct.chain_index\n"
+        "assert np.max(np.abs(enc.decode(sk.decrypt(out), slots=slots).real - x)) < 1e-4\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

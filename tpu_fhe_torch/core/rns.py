@@ -57,6 +57,14 @@ class RNSBase:
             for i, m in enumerate(self.base)
         )
 
+    def extend(self, other: "RNSBase") -> "RNSBase":
+        """This base followed by `other`'s moduli, which must be coprime to
+        every one of this base's."""
+        for m in other.base:
+            if any(numth.gcd(m.value, mine.value) != 1 for mine in self.base):
+                raise ValueError("cannot extend by non-coprime modulus")
+        return RNSBase(self.base + other.base)
+
     @cached_property
     def q_hat_inv_mod_q_shoup(self) -> tuple[int, ...]:
         return tuple(

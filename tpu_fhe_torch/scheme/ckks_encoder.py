@@ -7,13 +7,23 @@ NTT runs on the context's device.  Plaintexts are in the context's word:
 int32 on a q32 context (the reference's compact plaintexts,
 ``tpu_fhe/scheme/ckks_encoder.py:198-203``), int64 otherwise.  Decode is the inverse chain, with the
 CRT composition in exact Python integers (seconds at N = 2^15 and 30 limbs).
-Sparse packing (slots < N/2) replicates the slot vector across the full
-slot set.
+Sparse packing (2 <= slots < N/2) embeds the slot vector at ring degree
+2 * slots and scatters the result at coefficient stride N / (2 * slots),
+as the reference does (``tpu_fhe/scheme/ckks_encoder.py:62-99``): the
+values equal those of the slot vector tiled across the full slot set, but
+the smaller transform rounds differently, and the port's encode is
+bit-identical to the reference's.
+
+``encode_ext`` and ``encode_ext_batch`` encode at the extended basis QlP
+(Ql followed by the special primes P) for the bootstrap's plaintexts that
+multiply hoisted ciphertexts; the QlP NTT view is the context's cached
+``ntt_view`` of the key-level tables.
 """
 
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from ..core.rns import RNSBase
 from ..ops.modarith import u32_tensor, u64_tensor
@@ -27,22 +37,42 @@ class CkksEncoder:
         self.context = context
         self.n = context.n
         self.slots = self.n // 2
-        two_n = 2 * self.n
-        # rotation-group exponents: e_j = 5^j mod 2N for j in [0, N/2)
-        e = np.empty(self.slots, dtype=np.int64)
-        cur = 1
-        for j in range(self.slots):
-            e[j] = cur
-            cur = (cur * 5) % two_n
-        self.rot_group = e
+        self._rot_cache: dict[int, np.ndarray] = {}
+        self._ext_cache: dict = {}
+        self.rot_group = self._rot_group_for(self.n)
+
+    def _rot_group_for(self, n_ring: int) -> np.ndarray:
+        """The rotation-group exponents 5^j mod 2 n_ring, j < n_ring / 2."""
+        got = self._rot_cache.get(n_ring)
+        if got is None:
+            two_n = 2 * n_ring
+            got = np.empty(n_ring // 2, dtype=np.int64)
+            cur = 1
+            for j in range(n_ring // 2):
+                got[j] = cur
+                cur = (cur * 5) % two_n
+            self._rot_cache[n_ring] = got
+        return got
+
+    def _embed_inverse_slots(self, values: np.ndarray, slots: int) -> np.ndarray:
+        """A `slots`-slot vector -> real coefficient vector (len N).  Full
+        packing (and slots < 2) tiles the vector to N/2 slots; otherwise
+        the ring-degree-2*slots embedding is scattered at stride
+        N / (2 * slots), the reference's sparse path."""
+        if slots > self.slots:
+            raise ValueError(f"too many values for ring degree: {slots} slots > "
+                             f"{self.slots} available (N={self.n})")
+        if slots == self.slots or slots < 2:
+            return self._embed_inverse(np.tile(values, self.slots // max(slots, 1)))
+        small = _host_embed_inverse(values, 2 * slots, self._rot_group_for(2 * slots))
+        out = np.zeros(values.shape[:-1] + (self.n,), dtype=np.float64)
+        out[..., ::self.n // (2 * slots)] = small
+        return out
 
     def _embed_inverse(self, values: np.ndarray) -> np.ndarray:
         """slots (complex, len N/2) -> real coefficient vector (len N):
         m_t = (2/N) Re(sum_j z_j zeta^{-e_j t}), one FFT of size 2N."""
-        n, two_n = self.n, 2 * self.n
-        spec = np.zeros(two_n, dtype=np.complex128)
-        np.add.at(spec, self.rot_group % two_n, values)
-        return (2.0 / n) * np.fft.fft(spec)[:n].real
+        return _host_embed_inverse(values, self.n, self.rot_group)
 
     def _embed_forward(self, coeffs: np.ndarray) -> np.ndarray:
         """real coefficients (len N) -> slot values (complex, len N/2)."""
@@ -51,6 +81,18 @@ class CkksEncoder:
         padded[: self.n] = coeffs
         evals = np.fft.ifft(padded) * two_n
         return evals[self.rot_group % two_n]
+
+    def _ext_tables(self, chain_index: int):
+        """(QlP RNS base, QlP NTT view) at `chain_index`, built once."""
+        got = self._ext_cache.get(chain_index)
+        if got is None:
+            ctx = self.context
+            level = ctx.level(chain_index)
+            size_Q = ctx.params.size_Q
+            rows = tuple(range(level.size)) + tuple(range(size_Q, size_Q + ctx.params.size_P))
+            got = self._ext_cache[chain_index] = (level.base.extend(ctx.base_P),
+                                                  ctx.ntt_view(ctx.key_ntt, rows))
+        return got
 
     def encode(self, values, scale: float, chain_index: int = 1,
                slots: int | None = None) -> Plaintext:
@@ -64,15 +106,41 @@ class CkksEncoder:
             raise ValueError("slot count must be a power of two")
         if slots > self.slots:
             raise ValueError("too many values for ring degree")
-        reps = self.slots // max(slots, 1)
-        coeffs = self._embed_inverse(np.tile(values, reps)) * scale
+        coeffs = self._embed_inverse_slots(values, slots) * scale
         amax = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
         if int(amax).bit_length() + 2 >= level.base.big_modulus.bit_length():
             raise ValueError("encoded values are too large for the modulus")
+        return Plaintext(data=forward_ntt(self._word(_round_decompose(coeffs, level.base)),
+                                          level.ntt),
+                         chain_index=chain_index, scale=scale)
+
+    def _word(self, residues: np.ndarray) -> torch.Tensor:
+        """uint64 residues as a tensor in the context's word on its device."""
         word = u32_tensor if self.context.is_q32 else u64_tensor
-        data = word(_round_decompose(coeffs, level.base), self.context.device)
-        return Plaintext(data=forward_ntt(data, level.ntt), chain_index=chain_index,
-                         scale=scale)
+        return word(residues, self.context.device)
+
+    def encode_ext(self, values, scale: float, chain_index: int = 1,
+                   slots: int | None = None, noise_scale_deg: int = 1) -> Plaintext:
+        """Encode at the extended basis QlP of `chain_index` (the reference's
+        encode_ext): a plaintext that multiplies hoisted ciphertexts."""
+        return self.encode_ext_batch([values], scale, chain_index, slots, noise_scale_deg)[0]
+
+    def encode_ext_batch(self, values_list, scale: float, chain_index: int = 1,
+                         slots: int | None = None,
+                         noise_scale_deg: int = 1) -> list[Plaintext]:
+        """encode_ext of every vector of `values_list`, with one
+        host-to-device copy and one batched forward NTT for the lot."""
+        base, ntt = self._ext_tables(chain_index)
+        planes = []
+        for values in values_list:
+            values = np.asarray(values, dtype=np.complex128).ravel()
+            s = slots if slots is not None else len(values)
+            if s & (s - 1):
+                raise ValueError("slot count must be a power of two")
+            planes.append(_round_decompose(self._embed_inverse_slots(values, s) * scale, base))
+        poly = forward_ntt(self._word(np.stack(planes)), ntt)         # (B, QlP, N)
+        return [Plaintext(data=poly[i], chain_index=chain_index, scale=scale,
+                          noise_scale_deg=noise_scale_deg) for i in range(len(planes))]
 
     def decode(self, pt: Plaintext, slots: int | None = None) -> np.ndarray:
         level = self.context.level(pt.chain_index)
@@ -83,6 +151,17 @@ class CkksEncoder:
         coeffs = _compose_signed(residues, level.base)
         vals = self._embed_forward(np.asarray(coeffs, dtype=np.float64) / pt.scale)
         return vals if slots is None else vals[:slots]
+
+
+def _host_embed_inverse(values: np.ndarray, n_ring: int,
+                        rot_group: np.ndarray) -> np.ndarray:
+    """The inverse embedding at ring degree `n_ring`: a scatter of the slot
+    values onto the rotation group's exponents, then one FFT of size
+    2 n_ring."""
+    two_n = 2 * n_ring
+    spec = np.zeros(two_n, dtype=np.complex128)
+    np.add.at(spec, rot_group % two_n, np.asarray(values, np.complex128))
+    return (2.0 / n_ring) * np.fft.fft(spec)[:n_ring].real
 
 
 def _round_decompose(coeffs: np.ndarray, base: RNSBase) -> np.ndarray:
