@@ -103,9 +103,9 @@ plaintexts freed before the second's are made):
     setup and keygen seconds, the keys and their form, peak memory, ms
     per bootstrap and per stage (CUDA events, after a warm-up; the events
     recorded around each stage method of the bootstrapper while
-    eval_bootstrap runs), a profile window of one
-    bootstrap (device busy and idle share, the port's kernels against
-    the glue), precision bits, levels after and the launches of each
+    eval_bootstrap runs), a profile window of one bootstrap (device busy
+    and idle share, the port's kernels against the glue, the lost-events
+    check below), precision bits, levels after and the launches of each
     kernel in one bootstrap (counters set to 0 just before); fails below
     the reference's precision less half a bit (14.1 u64, 12.9 q32) or at
     other than 4 levels after;
@@ -114,11 +114,45 @@ plaintexts freed before the second's are made):
     two-iteration Meta-BTS through the kernels, each bit-identical to the
     same through the plain versions and decoding to more than 10 bits.
 
+Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
+(tpu_fhe_torch/models/dnn.py, resnet20.py):
+
+12. per plan, at N = 2^10 (width 4, 1-2 channels, the sparse sine set,
+    level budget (2, 2), 9 levels after the bootstrap): conv at stride 1
+    and 2 on the device-encode path and at stride 1 on the host-encode
+    path, batch_norm, add, relu, sign, softmax, relu_composite of one
+    channel (three bootstraps) and avg_pool_full_con, every kernel of the
+    plan but K11 launched (counters set to 0 first) and each layer
+    bit-identical, with the same chain index, scale and noise-scale
+    degree, to the same through the plain versions; relu_composite within
+    1e-3 of its float64 composite;
+13. encrypted ResNet-20 at full width on the q32 plan
+    (examples/resnet20_infer.py --q32: N = 2^16, a 32 x 32 x 3 image,
+    planes 16/32/64 from random_weights(default_rng(17)), 11 levels after
+    the bootstrap, K = 512, r = 6, degree 88, 1024 slots), its stem and
+    layer 1's first block (resnet20_infer(layers=1, blocks=1): 144
+    bootstraps of one channel), through the entry points: the decrypted
+    32 x 32 x 16 activations within 1e-2 of the float64 shadow that applies
+    the same sign composite, with context, setup and keygen seconds, key
+    bytes, peak memory, ms per stage, the timer buckets, ms per channel
+    bootstrap, the launches of each kernel (counters set to 0 first) and a
+    profile of one channel's relu_composite; then every kernel of the
+    inference against its plain version at every distinct shape the
+    inference gave its wrapper, on the inference's own arguments and the
+    context's tables (recorded while it ran; the recorded calls must equal
+    the launches), each kernel's widest shape timed and bounded.
+
+Every bootstrap profile (phases 10 and 13) compares its count of each port
+kernel with the launches the wrappers counted in the same run; a window
+that falls short lost events and is taken again, up to 3 in all, and is
+printed as undercounted if the last still falls short.
+
 Each phase's seconds, then the kernels line (every kernel of both plans,
-its launches summed over the requests, rotations, EvalMod, raise_mod and
-the flagship bootstrap, its headline numbers and under "checks" each shape
-it was held at with that shape's ms, plain ms and bound) and the line
-{"ok": true, "device": {...}}.
+its launches summed over the requests, rotations, EvalMod, raise_mod, the
+flagship bootstrap, the DNN layers and the ResNet-20 inference, its
+headline numbers and under "checks" each shape it was held at with that
+shape's ms, plain ms and bound) and the line {"ok": true, "device":
+{...}}.
 """
 
 from __future__ import annotations
@@ -127,6 +161,7 @@ import contextlib
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -306,11 +341,27 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     seconds["11"] = time.time() - t0
+    # -- 12. every DNN layer through the kernels == through the plain versions
+    t0 = time.time()
+    for plan in plans:
+        plan["dnn"] = dnn_plain_phase(plan["tag"], plan["ck"])
+        gc.collect()
+        torch.cuda.empty_cache()
+    seconds["12"] = time.time() - t0
+    # -- 13. encrypted ResNet-20 at full width on the q32 plan
+    t0 = time.time()
+    q32 = plans[1]
+    q32["resnet"] = resnet_phase(q32["ck"], card)
+    plans[0]["resnet"] = dict.fromkeys(plans[0]["launches"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["13"] = time.time() - t0
     log("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     line = []
     for plan in plans:
         line += plan["ck"].line({name: count + plan["emod"][name] + plan["raised"][name]
-                                 + plan["boot"][name]
+                                 + plan["boot"][name] + plan["dnn"][name]
+                                 + plan["resnet"][name]
                                  for name, count in plan["launches"].items()})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -374,6 +425,7 @@ class Checker:
                 "replaces": file_line, "launches": launches[name], "max_abs_err": 0,
                 "ms": e["ms"], "plain_ms": e["plain_ms"], "bound_ms": e["bound_ms"],
                 "bound_by": e["bound_by"], "library_ms": None, "checks": e["checks"],
+                "path_shapes": e.get("path_shapes", {}),
             })
         return out
 
@@ -975,26 +1027,36 @@ def one_launch(what: str, fn, names: tuple, reps: int = 10, windows: int = 3) ->
     log(f"[one launch] {what}: {' '.join(names)}, {reps} calls, {reps} launches")
 
 
-@contextlib.contextmanager
-def plain_versions():
-    """Within this block the evaluator (and hoisting, which calls its
-    keyswitch stages) and auto (and Chebyshev, which calls it) compute
-    through the kernels' plain torch versions, on the same CUDA tensors:
-    the names they call are swapped for them."""
-    from tpu_fhe_torch.eval import auto, evaluator as ev
+def path_wrappers() -> dict:
+    """The kernel wrappers that the evaluator (and hoisting, which calls its
+    keyswitch stages), auto (and Chebyshev, which calls it), the DNN layers'
+    mask transforms and the encoder call, by the names they call them: each
+    launches one kernel per call.  -> name: (its plain version, the number
+    of leading data arguments; the rest are the context's tables and
+    keys)."""
     from tpu_fhe_torch.ops import bconv, ks, ntt
 
-    swaps = dict(
-        forward_ntt=ntt.forward_ntt_plain, inverse_ntt=ntt.inverse_ntt_plain,
-        inverse_ntt_scaled=ntt.inverse_ntt_plain,
-        forward_ntt_sub_scale=ntt.forward_ntt_sub_scale_plain,
-        bconv_matmul=bconv.bconv_matmul_plain, bconv_matmul32=bconv.bconv_matmul32_plain,
-        key_inner_prod=ks.key_inner_prod_plain, key_inner_prod32=ks.key_inner_prod32_plain,
-        key_inner_prod_shoup=ks.key_inner_prod_shoup_plain)
-    saved = [(mod, name, getattr(mod, name)) for mod in (ev, auto) for name in swaps
-             if hasattr(mod, name)]
-    for mod, name, _ in saved:
-        setattr(mod, name, swaps[name])
+    return dict(
+        forward_ntt=(ntt.forward_ntt_plain, 1), inverse_ntt=(ntt.inverse_ntt_plain, 1),
+        inverse_ntt_scaled=(ntt.inverse_ntt_plain, 1),
+        forward_ntt_sub_scale=(ntt.forward_ntt_sub_scale_plain, 2),
+        bconv_matmul=(bconv.bconv_matmul_plain, 1), bconv_matmul32=(bconv.bconv_matmul32_plain, 1),
+        key_inner_prod=(ks.key_inner_prod_plain, 1), key_inner_prod32=(ks.key_inner_prod32_plain, 1),
+        key_inner_prod_shoup=(ks.key_inner_prod_shoup_plain, 1))
+
+
+@contextlib.contextmanager
+def swapped_wrappers(make):
+    """Within this block the modules that call the path's wrappers
+    (path_wrappers) call make(name, wrapper) in their place."""
+    from tpu_fhe_torch.eval import auto, evaluator as ev
+    from tpu_fhe_torch.models import dnn
+    from tpu_fhe_torch.scheme import ckks_encoder
+
+    saved = [(mod, name, getattr(mod, name)) for mod in (ev, auto, dnn, ckks_encoder)
+             for name in path_wrappers() if hasattr(mod, name)]
+    for mod, name, fn in saved:
+        setattr(mod, name, make(name, fn))
     try:
         yield
     finally:
@@ -1002,23 +1064,150 @@ def plain_versions():
             setattr(mod, name, fn)
 
 
-def same_as_plain(tag: str, what: str, ck: Checker, run) -> list:
-    """`run()` (a list of ciphertexts) through the kernels equals the same
-    through the plain versions, bit for bit; the plain run launches
-    nothing.  Returns the kernels' run."""
+def plain_versions():
+    """Within this block the path computes through the kernels' plain torch
+    versions, on the same CUDA tensors."""
+    plain = path_wrappers()
+    return swapped_wrappers(lambda name, fn: plain[name][0])
+
+
+def _arg_key(a):
     import torch
 
-    outs = run()
-    got = [c.data for c in outs]
+    if isinstance(a, torch.Tensor):
+        return tuple(a.shape), str(a.dtype)
+    return None if a is None else type(a).__name__
+
+
+def recorded_calls(calls: dict):
+    """Within this block every call of the path's wrappers counts one in
+    calls["count"], and the first call of each distinct wrapper and shapes
+    of its arguments keeps them in calls["args"] (the data arguments
+    cloned, the context's tables and keys by reference) for path_checks."""
+    data = {name: lead for name, (_, lead) in path_wrappers().items()}
+    calls.update(count=0, args={})
+
+    def make(name, fn):
+        def call(*args, **kw):
+            key = (name, tuple(_arg_key(a) for a in args),
+                   tuple((k, _arg_key(v)) for k, v in sorted(kw.items())))
+            if key not in calls["args"]:
+                calls["args"][key] = (name, fn, tuple(a.clone() if i < data[name] else a
+                                                      for i, a in enumerate(args)), kw)
+            calls["count"] += 1
+            return fn(*args, **kw)
+        return call
+    return swapped_wrappers(make)
+
+
+def wrapper_cost(name: str, args: tuple, kw: dict) -> dict:
+    """Bytes and operations of one call of a path wrapper on `args` (the
+    forms of ntt_cost and bconv_cost; the inner products as in
+    boot_path_checks)."""
+    x = args[0]
+    word, n = x.element_size(), x.shape[-1]
+    per_mul = IMAD_PER_MUL32 if word == 4 else IMAD_PER_MUL64
+    if name.startswith("bconv"):
+        k = x.shape[-2]
+        return bconv_cost(word, x.numel() // (k * n), k, args[1].shape[0], n)
+    if name.startswith("key_inner_prod"):
+        beta, L, _ = x.shape
+        if name == "key_inner_prod_shoup":
+            return dict(nbytes=word * n * (beta * L + 2 * 2 * beta * L + 2 * L),
+                        imads=3 * 2 * beta * L * n * per_mul)
+        nbytes = word * n * (beta * L + 2 * beta * L + 2 * L)
+        if word == 4:
+            return dict(nbytes=nbytes, imads=2 * L * n * (beta * IMAD_PER_WIDE32
+                                                          + 7 * IMAD_PER_MUL32))
+        return dict(nbytes=nbytes, imads=2 * L * n * (2 * beta + 6) * IMAD_PER_MUL64)
+    L, rows = x.shape[-2], x.numel() // n
+    if name == "forward_ntt_sub_scale":
+        pre = kw.get("pre", args[5] if len(args) > 5 else None)
+        return dict(nbytes=word * n * (3 * rows + 2 * L),
+                    imads=ntt_cost(word, rows, L, extra_muls=1 + (pre is not None), n=n)[1])
+    if name == "forward_ntt":
+        extra = 0
+    elif name == "inverse_ntt_scaled" and kw.get("scale", args[2] if len(args) > 2 else None) \
+            is not None:
+        extra = 2
+    else:
+        extra = 1
+    nbytes, imads = ntt_cost(word, rows, L, extra_muls=extra, n=n)
+    return dict(nbytes=nbytes, imads=imads)
+
+
+def path_checks(tag: str, what: str, ck: Checker, calls: dict, launches: dict) -> None:
+    """Every kernel of a run recorded by recorded_calls against its plain
+    version at every distinct shape the run gave its wrapper, on the run's
+    own arguments and tables: bit-exact, and each kernel's widest shape
+    also timed and bounded (Checker.check, listed under "checks").  The
+    recorded calls must equal the run's launches (`launches`), and every
+    kernel the run launched must have been held."""
+    import torch
+
+    plain = {name: fn for name, (fn, _) in path_wrappers().items()}
+    if calls["count"] != sum(launches.values()):
+        fail(f"{tag} {what}: {calls['count']} wrapper calls recorded against "
+             f"{sum(launches.values())} launches")
+    t0 = time.time()
+    held: dict = {}
+    for name, fn, args, kw in calls["args"].values():
+        ck.reset()
+        got = fn(*args, **kw)
+        kernel = [k for k, v in ck.launches().items() if v]
+        want = plain[name](*args, **kw)
+        torch.cuda.synchronize()
+        if len(kernel) != 1:
+            fail(f"{tag} {what}: one call of {name} launched {kernel}")
+        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"{tag} {what}: {kernel[0]} ({name}) at {tuple(args[0].shape)} differs from "
+                 "its plain version")
+        held.setdefault(kernel[0], []).append((name, fn, args, kw))
+    missing = [k for k, v in launches.items() if v and k not in held]
+    if missing:
+        fail(f"{tag} {what}: launched but never held against the plain version: {missing}")
+    for kernel, entries in held.items():
+        name, fn, args, kw = max(entries, key=lambda e: e[2][0].numel())
+        dims = ", ".join(f"2^{d.bit_length() - 1}" if i == args[0].dim() - 1 else str(d)
+                         for i, d in enumerate(args[0].shape))
+        ck.check(kernel, f"({dims}), the widest of {len(entries)} shapes of the {what}",
+                 lambda: fn(*args, **kw), lambda: plain[name](*args, **kw),
+                 **wrapper_cost(name, args, kw))
+        ck.report[kernel].setdefault("path_shapes", {})[f"{tag} {what}"] = len(entries)
+    log(f"[{tag} kernels] the {what}: every kernel at every distinct shape of its "
+        f"{calls['count']} wrapper calls == plain versions, bit for bit ("
+        + ", ".join(f"{k} {len(v)}" for k, v in held.items())
+        + f" shapes) in {time.time() - t0:.1f} s")
+
+
+def _meta(c) -> tuple:
+    return c.chain_index, c.scale, c.noise_scale_deg
+
+
+def plain_matches(tag: str, what: str, ck: Checker, run, got: list) -> None:
+    """`run()` (a list of ciphertexts) through the plain versions equals
+    `got`, the same run through the kernels: every limb, the chain index,
+    the scale and the noise-scale degree.  The plain run launches
+    nothing."""
+    import torch
+
     ck.reset()
     with plain_versions():
-        want = [c.data for c in run()]
+        want = run()
     torch.cuda.synchronize()
     if any(ck.launches().values()):
         fail(f"{tag} {what}: the run through the plain versions launched kernels")
-    if not all(torch.equal(g, w) for g, w in zip(got, want)):
+    if len(got) != len(want) or not all(torch.equal(g.data, w.data) and _meta(g) == _meta(w)
+                                        for g, w in zip(got, want)):
         fail(f"{tag} {what} through the kernels differs from the plain versions")
     log(f"[{tag} slice] {what}: kernels == plain versions, bit for bit")
+
+
+def same_as_plain(tag: str, what: str, ck: Checker, run) -> list:
+    """`run()` (a list of ciphertexts) through the kernels equals the same
+    through the plain versions (plain_matches).  Returns the kernels' run."""
+    outs = run()
+    plain_matches(tag, what, ck, run, outs)
     return outs
 
 
@@ -1355,9 +1544,6 @@ BOOT_DROP_TO = {"u64": 2, "q32": 4}      # input limbs (examples/bootstrap_ckks.
 SMALL_N, SMALL_SLOTS = 1 << 12, 64
 BOOT11_MIN_BITS = 10.0                   # examples/bootstrap_ckks.py:203's assertion
 META_PRECISION = 12
-# the port's kernels in a profile (every other device kernel is glue)
-PORT_KERNELS = ("fwd_cluster", "inv_cluster", "bconv", "ks_kernel", "ks32_kernel",
-                "ks_shoup_kernel")
 
 
 def boot_context(plan: str, n: int, sine: tuple, budget: tuple, levels_after: int):
@@ -1551,12 +1737,37 @@ def stage_ms(boot, run) -> dict:
     return {name: a.elapsed_time(b) for name, a, b in events}
 
 
-def profile_bootstrap(tag: str, run, ms: float) -> None:
-    """A device-only profile of one bootstrap: the window (CUDA events), the
+# Each wrapper launches one device kernel per call; the kernel's name in a
+# profile says which wrapper launched it (the plan's word aside).
+WRAPPER_GROUP = {"ntt_fwd": "fwd_cluster", "ntt_fwd32": "fwd_cluster",
+                 "ntt_fwd_landing": "fwd_cluster Landing",
+                 "ntt_fwd_landing32": "fwd_cluster Landing",
+                 "ntt_inv": "inv_cluster", "ntt_inv32": "inv_cluster",
+                 "bconv": "bconv_kernel", "bconv_mxu": "bconv_mxu_kernel",
+                 "bconv32": "bconv32_kernel", "key_inner_prod": "ks_kernel",
+                 "key_inner_prod32": "ks32_kernel", "key_inner_prod_shoup": "ks_shoup_kernel",
+                 "key_inner_prod_shoup32": "ks_shoup_kernel"}
+
+
+def port_group(key: str) -> str | None:
+    """The wrapper group of a profiled device kernel, None for glue."""
+    for name in ("fwd_cluster", "inv_cluster", "bconv_mxu_kernel", "bconv32_kernel",
+                 "bconv_kernel", "ks_shoup_kernel", "ks32_kernel", "ks_kernel"):
+        if re.search(r"(?<!\w)" + name, key):
+            return name + " Landing" if name == "fwd_cluster" and "Landing" in key else name
+    return None
+
+
+def profile_window(tag: str, what: str, run, ms: float, ck: Checker, windows: int = 3) -> None:
+    """A device-only profile of one `run()`: the window (CUDA events), the
     device's busy time and idle share, the port's kernels against the glue,
-    and the kernels with the most device time.  Tracing slows the host's
-    enqueue, so the window is longer than an untraced bootstrap (`ms`);
-    the idle share against `ms` is printed beside it."""
+    and the kernels with the most device time.  The profile's count of
+    each port kernel must equal the launches its wrapper counted in the same
+    run: a window that falls short lost events and is taken again, up to
+    `windows` in all; the last is printed as undercounted if it still falls
+    short, and a count above the wrapper's fails.  Tracing slows the host's
+    enqueue, so the window is longer than an untraced run (`ms`); the idle
+    share against `ms` is printed beside it."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1567,21 +1778,42 @@ def profile_bootstrap(tag: str, run, ms: float) -> None:
         end.record()
         end.synchronize()
 
-    device = device_kernels(window)
+    for attempt in range(1, windows + 1):
+        ck.reset()
+        device = device_kernels(window)
+        want: dict = {}
+        for name, count in ck.launches().items():
+            if count:
+                want[WRAPPER_GROUP[name]] = want.get(WRAPPER_GROUP[name], 0) + count
+        seen: dict = {}
+        for e in device:
+            group = port_group(e.key)
+            if group is not None:
+                seen[group] = seen.get(group, 0) + e.count
+        if any(seen.get(g, 0) > n for g, n in want.items()) or set(seen) - set(want):
+            fail(f"{tag} {what} profile: port kernels {seen} beyond the wrappers' launches "
+                 f"{want}")
+        if seen == want:
+            break
+        log(f"[{tag} profile] {what}: window {attempt} saw port kernels {seen} of the "
+            f"wrappers' {want} (the profiler lost events)")
+    lost = seen != want
     window_ms = start.elapsed_time(end)
     busy = sum(e.self_device_time_total for e in device) / 1e3
-    ours = sum(e.self_device_time_total for e in device
-               if any(k in e.key for k in PORT_KERNELS)) / 1e3
+    ours = sum(e.self_device_time_total for e in device if port_group(e.key)) / 1e3
     if busy <= 0:
-        log(f"[{tag} bootstrap profile] the profiler saw no device time: idle share not measured")
+        log(f"[{tag} profile] {what}: the profiler saw no device time: idle share not "
+            "measured")
         return
-    log(f"[{tag} bootstrap profile] one bootstrap: window {window_ms:.3f} ms, device busy "
+    log(f"[{tag} profile] {what}: window {window_ms:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / window_ms:.1f}%), idle "
         f"{100 * (1 - busy / window_ms):.1f}% (against the untraced {ms:.3f} ms: "
         f"{100 * (1 - busy / ms):.1f}%); the port's kernels {ours:.3f} ms, glue "
-        f"{busy - ours:.3f} ms in {sum(e.count for e in device)} device kernels")
+        f"{busy - ours:.3f} ms in {sum(e.count for e in device)} device kernels; "
+        + (f"undercounted: {windows} windows lost events" if lost else
+           f"every port launch seen (window {attempt})"))
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:14]:
-        log(f"[{tag} bootstrap profile]   {e.self_device_time_total / 1e3:.3f} ms  "
+        log(f"[{tag} profile]   {e.self_device_time_total / 1e3:.3f} ms  "
             f"{e.count} calls  {e.key[:90]}")
 
 
@@ -1668,7 +1900,7 @@ def flagship_phase(tag: str, ck: Checker, card: str) -> dict:
     stages = stage_ms(boot, run)
     log(f"[{tag} bootstrap] ms per stage (CUDA events around each stage method in one "
         f"eval_bootstrap): " + ", ".join(f"{k} {v:.3f}" for k, v in stages.items()))
-    profile_bootstrap(tag, run, ms)
+    profile_window(f"{tag} bootstrap", "one bootstrap", run, ms, ck)
     log(f"[{tag} bootstrap] peak device memory after one bootstrap "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
     return launches
@@ -1714,6 +1946,261 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
                 fail(f"{tag} {what}: precision {bits:.3f} bits < {BOOT11_MIN_BITS}")
     torch.cuda.synchronize()
     log(f"[{tag} bootstrap] phase 11 in {time.time() - t0:.1f} s")
+
+
+
+# --------------------------------------------------------------------------
+# PPML: the DNN layers against the plain versions at N = 2^10, and encrypted
+# ResNet-20 at full width (N = 2^16, q32)
+# --------------------------------------------------------------------------
+
+DNN_N, DNN_WIDTH = 1 << 10, 4
+DNN_LEVELS_AFTER = 9                     # the least ResNet-20 needs (tools/dnn_golden.py)
+DNN_MAX_ERR = 1e-3                       # relu_composite against its float64 composite
+RESNET_N, RESNET_WIDTH, RESNET_PLANES = 1 << 16, 32, (16, 32, 64)
+RESNET_LEVELS_AFTER = 11                 # examples/resnet20_infer.py:104
+RESNET_SLOTS = RESNET_WIDTH ** 2
+RESNET_MAX_ERR = 1e-2
+
+
+def dnn_context(plan: str, n: int, sine: tuple, budget: tuple, levels_after: int,
+                special: int):
+    """examples/resnet20_infer.py's context for `plan` (u64, or --q32) at ring
+    size n: depth = levels_after + the bootstrap's depth (the sine's depth +
+    r + sum(budget), :119-126); u64 [60] + [59] * depth + [60] * special
+    (:116, :149-156); q32 create_composite(n, 58, depth, degree=2,
+    anchor_bits=30, special_bits=30, special_count=depth + 1) (:131-147)."""
+    from tpu_fhe_torch.boot.bootstrap import gen_sine_coefficients
+    from tpu_fhe_torch.core.modulus import CoeffModulus
+    from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
+    from tpu_fhe_torch.eval import chebyshev as cheb
+    from tpu_fhe_torch.scheme.context import FheContext
+
+    depth = levels_after + cheb.get_mult_depth_by_coeff_vector(
+        gen_sine_coefficients(*sine), normalized=False) + sine[1] + sum(budget)
+    if plan == "q32":
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create_composite(
+                n, 58, depth, degree=2, anchor_bits=30, special_bits=30,
+                special_count=depth + 1)),
+            special_modulus_size=depth + 1, composite_degree=2, allow_insecure=True)
+    else:
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create(n, [60] + [59] * depth
+                                                          + [60] * special)),
+            special_modulus_size=special, allow_insecure=True)
+    return FheContext(params)
+
+
+def dnn_plain_phase(tag: str, ck: Checker) -> dict:
+    """Phase 12: every DNN layer through the kernels equal to the same
+    through the plain versions, at N = 2^10 (the smallest ring the kernels
+    take), width 4, 1-2 channels, the sparse sine set K = 28, r = 3, degree
+    44 (it decodes up to 2^10), level budget (2, 2): conv at stride 1 and 2
+    on the device-encode path and at stride 1 on the host-encode path,
+    batch_norm, add, relu, sign(., 0), softmax, relu_composite of one
+    channel (three bootstraps at 16 slots) and avg_pool_full_con.  Every
+    kernel of the plan but K11 must launch (counters set to 0 first), and
+    relu_composite must decode within DNN_MAX_ERR of its float64 composite.
+    Returns the launch counts of the layers' run."""
+    import torch
+
+    from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper
+    from tpu_fhe_torch.models.dnn import DNN, relu_composite_clear
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    t0 = time.time()
+    ctx = dnn_context(tag, DNN_N, SPARSE_SINE, (2, 2), DNN_LEVELS_AFTER, special=3)
+    sk, enc = SecretKey(ctx, seed=2026), CkksEncoder(ctx)
+    model = DNN(ctx, enc)
+    model.build_galois_key(sk, DNN.conv_rotation_indices(DNN_WIDTH, 3, 0)
+                           + DNN.conv_rotation_indices(DNN_WIDTH // 2, 3, 1)
+                           + DNN.avgpool_rotation_indices(DNN_WIDTH, 0))
+    slots = DNN_WIDTH ** 2
+    boot = CkksBootstrapper(ctx, enc)
+    boot.set_sine_params(*SPARSE_SINE)
+    boot.setup(level_budget=(2, 2), slots=slots)
+    boot.keygen(sk, slots)
+    model.mul_key = boot.mul_key
+    rng = np.random.default_rng(31)
+    images = {name: rng.uniform(-0.5, 0.5, (DNN_WIDTH, DNN_WIDTH, ch))
+              for name, ch in (("x2", 2), ("y2", 2), ("x1", 1))}
+    x2, y2, x1 = (model.enc_tensor(images[name], sk=sk) for name in ("x2", "y2", "x1"))
+    w = rng.normal(0.0, 0.3, (3, 3, 2, 2))
+    bn = (rng.uniform(0.7, 1.3, 2), rng.uniform(-0.1, 0.1, 2), rng.uniform(-0.1, 0.1, 2),
+          rng.uniform(0.8, 1.2, 2))
+    fc = (rng.normal(0.0, 0.5, (3, 2)), rng.normal(0.0, 0.1, 3))
+    cases = [
+        ("conv stride 1, device encode", lambda: model.conv(x2, w, 1)),
+        ("conv stride 2, device encode", lambda: model.conv(x2, w, 2)),
+        ("conv stride 1, host encode", lambda: model.conv(x2, w, 1, device_encode=False)),
+        ("batch_norm", lambda: model.batch_norm(x2, *bn)),
+        ("add", lambda: model.add(model.batch_norm(x2, *bn), y2)),
+        ("relu", lambda: model.relu(x2, -1.0, 1.0, 15)),
+        ("sign(., 0)", lambda: model.sign(x2, 0)),
+        ("softmax", lambda: model.softmax(x2)),
+        ("relu_composite of one channel", lambda: model.relu_composite(x1, boot)),
+        ("avg_pool_full_con", lambda: model.avg_pool_full_con(x2, *fc)),
+    ]
+    torch.cuda.synchronize()
+    ck.reset()
+    outs = [fn() for _, fn in cases]
+    torch.cuda.synchronize()
+    launches = ck.launches()
+    log(f"[{tag} dnn] N=2^{DNN_N.bit_length() - 1}, {ctx.params.size_Q} + "
+        f"{ctx.params.size_P} limbs, width {DNN_WIDTH}, sine {SPARSE_SINE}: launches in "
+        f"the {len(cases)} layers: {launches}")
+    ck.require_launched(f"{tag} DNN layers", launches, ("bconv",))
+    for (what, fn), got in zip(cases, outs):
+        plain_matches(tag, f"DNN {what}", ck, lambda fn=fn: fn().cts, got.cts)
+    err = float(np.max(np.abs(model.dec_tensor(outs[8], sk)
+                              - relu_composite_clear(images["x1"]))))
+    log(f"[{tag} dnn] relu_composite: max err {err:.3e} against its float64 composite "
+        f"(limit {DNN_MAX_ERR}); phase 12 in {time.time() - t0:.1f} s")
+    if not err <= DNN_MAX_ERR:
+        fail(f"{tag} relu_composite: max error {err} > {DNN_MAX_ERR}")
+    return launches
+
+
+def resnet_phase(ck: Checker, card: str) -> dict:
+    """Phase 13: encrypted ResNet-20 at full width on the q32 plan,
+    examples/resnet20_infer.py --q32's recipe (:99-175): N = 2^16, width 32,
+    planes 16/32/64 from random_weights(default_rng(17)) and the image
+    uniform in [-0.5, 0.5) from the same generator, create_composite(2^16,
+    58, depth, ...) with depth = 11 + the bootstrap's depth at level budget
+    (2, 2), the sine set K = 512, r = 6, degree 88, 1024 slots; through the
+    entry points (FheContext, SecretKey, CkksEncoder, DNN,
+    prepare_resnet20, CkksBootstrapper setup/keygen, enc_tensor,
+    resnet20_infer(layers=1, blocks=1): the stem and layer 1's first block,
+    144 bootstraps of one channel, dec_tensor).  The decrypted 32 x 32 x 16
+    activations must be within RESNET_MAX_ERR of the float64 shadow that
+    applies the same sign composite; the distance to the exact-ReLU shadow
+    is printed beside it.  Prints context, setup and keygen seconds, the
+    keys and their form, peak memory, ms per stage (CUDA events), the timer
+    buckets, ms per channel bootstrap, the launches of each kernel in the
+    inference (counters set to 0 just before) and a profile of one
+    channel's relu_composite, then holds every kernel of the inference
+    against its plain version at each shape the inference launched it at
+    (path_checks; the wrapper calls are recorded while the inference
+    runs).  Returns the launch counts."""
+    import torch
+
+    from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper
+    from tpu_fhe_torch.eval import auto
+    from tpu_fhe_torch.models import resnet20 as rn
+    from tpu_fhe_torch.models.dnn import DNN, TensorCT, relu_composite_clear
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.keys import SecretKey
+    from tpu_fhe_torch.utils import timer
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ctx = dnn_context("q32", RESNET_N, UNIFORM_SINE, (2, 2), RESNET_LEVELS_AFTER, special=15)
+    sk, enc = SecretKey(ctx, seed=2027), CkksEncoder(ctx)
+    model = DNN(ctx, enc, scale=auto.scaling_factors(ctx)[0][0])
+    torch.cuda.synchronize()
+    t1 = time.time()
+    boot = CkksBootstrapper(ctx, enc)
+    boot.set_sine_params(*UNIFORM_SINE)
+    boot.setup(level_budget=(2, 2), slots=RESNET_SLOTS)
+    torch.cuda.synchronize()
+    t2 = time.time()
+    rn.prepare_resnet20(model, sk, width=RESNET_WIDTH, layers=1)
+    boot.keygen(sk, slots=RESNET_SLOTS)
+    model.mul_key = boot.mul_key
+    torch.cuda.synchronize()
+    t3 = time.time()
+
+    def key_bytes(keys) -> int:
+        return sum(k.data.numel() * k.data.element_size()
+                   + (0 if k.shoup is None else k.shoup.numel() * k.shoup.element_size())
+                   for k in keys)
+
+    dnn_key = next(iter(model.gk.keys.values()))
+    log(f"[q32 resnet] N=2^{RESNET_N.bit_length() - 1}, {ctx.params.size_Q} + "
+        f"{ctx.params.size_P} limbs, width {RESNET_WIDTH}, planes {RESNET_PLANES}, "
+        f"{RESNET_SLOTS} slots, sine {UNIFORM_SINE}, budget (2, 2): context {t1 - t0:.1f} s, "
+        f"bootstrap setup {t2 - t1:.1f} s, keygen {t3 - t2:.1f} s")
+    log(f"[q32 resnet] keys: {len(model.gk.keys)} conv Galois keys {tuple(dnn_key.data.shape)} "
+        f"{dnn_key.data.dtype} without Shoup words (K9) "
+        f"{key_bytes(model.gk.keys.values()) / 2**30:.2f} GiB; {len(boot.galois_keys.keys)} "
+        f"bootstrap Galois keys, Shoup words: {boot.key_shoup} "
+        f"{key_bytes(boot.galois_keys.keys.values()) / 2**30:.2f} GiB; relin key "
+        f"{key_bytes([boot.mul_key]) / 2**30:.2f} GiB; peak device memory after setup and "
+        f"keygen {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    rng = np.random.default_rng(17)
+    weights = rn.random_weights(rng, planes=RESNET_PLANES)
+    image = rng.uniform(-0.5, 0.5, (RESNET_WIDTH, RESNET_WIDTH, 3))
+    x = model.enc_tensor(image, sk=sk)
+    events = []
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    calls: dict = {}
+    torch.cuda.synchronize()
+    timer.clear()
+    ck.reset()
+    events.append(("start", event()))
+    t0 = time.time()
+    with recorded_calls(calls):
+        out = rn.resnet20_infer(x, model, boot, weights, log=lambda m: log(f"[q32 resnet] {m}"),
+                                blocks=1, layers=1,
+                                on_stage_done=lambda name, t: events.append((name, event())))
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = ck.launches()
+    acts = model.dec_tensor(out, sk)
+    shadow = rn.resnet20_infer_clear(image, weights, relu=relu_composite_clear, blocks=1,
+                                     layers=1)
+    exact = rn.resnet20_infer_clear(image, weights, blocks=1, layers=1)
+    if acts.shape != shadow.shape or not np.all(np.isfinite(acts)):
+        fail(f"q32 resnet: decoded {acts.shape} (want {shadow.shape}) or non-finite values")
+    err = float(np.max(np.abs(acts - shadow)))
+    buckets = timer.accumulated()
+    boots = timer.counts().get("Bootstrap", 0)
+    log(f"[q32 resnet] inference (stem + l1b0) {wall:.2f} s (host clock); ms per stage "
+        f"(CUDA events): " + ", ".join(f"{b[0]} {a[1].elapsed_time(b[1]):.1f}"
+                                       for a, b in zip(events, events[1:])))
+    log(f"[q32 resnet] timer buckets (s, sections): " + ", ".join(
+        f"{k} {v:.3f} ({timer.counts()[k]})" for k, v in sorted(buckets.items(),
+                                                              key=lambda kv: -kv[1])))
+    log(f"[q32 resnet] {boots} channel bootstraps at {RESNET_SLOTS} slots, "
+        f"{1e3 * buckets.get('Bootstrap', 0.0) / max(boots, 1):.1f} ms each (Bootstrap bucket, "
+        f"synchronized host clock)")
+    log(f"[q32 resnet] activations {acts.shape}: max err {err:.3e} against the float64 "
+        f"sign-composite shadow (limit {RESNET_MAX_ERR}); max distance "
+        f"{float(np.max(np.abs(acts - exact))):.3e} to the exact-ReLU shadow (not gated); "
+        f"chain index {out.cts[0].chain_index}, peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"[q32 resnet] launches in the inference: {launches}")
+    if not err <= RESNET_MAX_ERR:
+        fail(f"q32 resnet: max error {err} > {RESNET_MAX_ERR}")
+    ck.require_launched("q32 resnet", launches, ("bconv",))
+
+    one = TensorCT(out.cts[:1], out.width, out.slotstr)
+    ct = out.cts[0]
+    ms = cuda_ms(lambda: boot.eval_bootstrap(ct, RESNET_SLOTS), reps=1, samples=3)
+    log(f"[q32 resnet] {ms:.3f} ms per channel bootstrap at {RESNET_SLOTS} slots (CUDA events, "
+        f"median of 3 after a warm-up) on {card}")
+
+    def relu_one():
+        return model.relu_composite(one, boot)
+
+    relu_ms = cuda_ms(relu_one, reps=1, samples=3)
+    log(f"[q32 resnet] {relu_ms:.3f} ms per relu_composite of one channel (three bootstraps; "
+        f"CUDA events, median of 3) on {card}")
+    profile_window("q32 resnet", "relu_composite of one channel", relu_one, relu_ms, ck)
+    log(f"[q32 resnet] peak device memory after the inference "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    # after the profile: each timed check captures and replays a CUDA graph
+    path_checks("q32", "ResNet-20 inference", ck, calls, launches)
+    return launches
 
 
 if __name__ == "__main__":

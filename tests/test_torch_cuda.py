@@ -7,8 +7,8 @@ inputs and outputs, and each slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum;
 the FLEXIBLEAUTO ops, raise_mod and a Chebyshev series; the encoder's QlP
 plaintexts) on the card against the same slice on the CPU, and one N = 2^12
-bootstrap through the kernels against the same through the plain
-versions.  Every method of the graph-replaying Evaluator equals the eager
+bootstrap, one DNN conv and one batch norm through the kernels against
+the same through the plain versions.  Every method of the graph-replaying Evaluator equals the eager
 op through its CUDA graph, at small rings and at 2^15, and raises when its
 capture fails.
 
@@ -968,6 +968,67 @@ def test_bootstrap_kernels_equal_plain(gpu, word, monkeypatch):
         "the run through the plain versions launched kernels"
     assert (got.chain_index, got.scale) == (want.chain_index, want.scale)
     assert torch.equal(got.data, want.data)
+
+
+@pytest.mark.parametrize("word", ["u64", "q32"])
+def test_dnn_conv_and_batch_norm_kernels_equal_plain(gpu, word, monkeypatch):
+    """One conv (device-encoded masks, stride 1) and one batch_norm of a
+    2-channel 4 x 4 tensor at N = 2^10 through the kernels equal the same
+    with the kernel wrappers of the evaluator, auto, the DNN layers and the
+    encoder swapped for the plain versions, bit for bit, with the same
+    metadata; the plain run launches nothing."""
+    from tpu_fhe_torch.models import dnn
+    from tpu_fhe_torch.ops._build import CudaKernel
+    from tpu_fhe_torch.scheme import ckks_encoder
+
+    n = 1024
+    if word == "q32":
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create_composite(
+                n, 58, 6, degree=2, anchor_bits=30, special_bits=30, special_count=7)),
+            special_modulus_size=7, composite_degree=2, allow_insecure=True)
+    else:
+        params = EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create(n, [60] + [59] * 6 + [60] * 3)),
+            special_modulus_size=3, allow_insecure=True)
+    c = FheContext(params, device=gpu)
+    sk, enc = SecretKey(c, seed=8), ckks_encoder.CkksEncoder(c)
+    model = dnn.DNN(c, enc)
+    model.build_galois_key(sk, dnn.DNN.conv_rotation_indices(4, 3, 0))
+    model.relin_keygen(sk)
+    rng = np.random.default_rng(9)
+    x = model.enc_tensor(rng.uniform(-0.5, 0.5, (4, 4, 2)), sk=sk)
+    w = rng.normal(0.0, 0.3, (3, 3, 2, 2))
+    bn = [rng.uniform(0.7, 1.3, 2) for _ in range(4)]
+
+    def run():
+        return model.conv(x, w, 1).cts + model.batch_norm(x, *bn).cts
+
+    got = run()
+    swaps = dict(forward_ntt=ntt.forward_ntt_plain, inverse_ntt=ntt.inverse_ntt_plain,
+                 inverse_ntt_scaled=ntt.inverse_ntt_plain,
+                 forward_ntt_sub_scale=ntt.forward_ntt_sub_scale_plain,
+                 bconv_matmul=bconv.bconv_matmul_plain,
+                 bconv_matmul32=bconv.bconv_matmul32_plain,
+                 key_inner_prod=ks.key_inner_prod_plain,
+                 key_inner_prod32=ks.key_inner_prod32_plain,
+                 key_inner_prod_shoup=ks.key_inner_prod_shoup_plain)
+    for mod in (ev, auto, dnn, ckks_encoder):
+        for name, fn in swaps.items():
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, fn)
+    kernels = [k for mod in (ntt, bconv, ks) for k in vars(mod).values()
+               if isinstance(k, CudaKernel)]
+    for k in kernels:
+        k.launches = 0
+    want = run()
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in kernels if k.launches} == {}, \
+        "the run through the plain versions launched kernels"
+    for g, wt in zip(got, want):
+        assert (g.chain_index, g.scale, g.noise_scale_deg) == \
+            (wt.chain_index, wt.scale, wt.noise_scale_deg)
+        assert torch.equal(g.data, wt.data)
 
 
 def test_evaluator_raises_when_capture_fails(ctx, monkeypatch):

@@ -1,9 +1,11 @@
-"""tpu_fhe_torch and chip_smoke.py import neither jax nor tpu_fhe, and the
-port's slices (the u64 plan's and the q32 plan's modules alike, the
-rotation path of ops/galois.py and eval/hoisting.py, the evaluation layer
-of eval/auto.py, eval/chebyshev.py and eval/jit.py, and the bootstrap of
-boot/boot_math.py and boot/bootstrap.py with the encoder's QlP forms) run
-with both blocked."""
+"""tpu_fhe_torch, chip_smoke.py and examples/torch_resnet20_infer.py import
+neither jax nor tpu_fhe, and the port's slices (the u64 plan's and the q32
+plan's modules alike, the rotation path of ops/galois.py and
+eval/hoisting.py, the evaluation layer of eval/auto.py, eval/chebyshev.py
+and eval/jit.py, the bootstrap of boot/boot_math.py and boot/bootstrap.py
+with the encoder's QlP forms, and the PPML layers and ResNet-20 of
+models/dnn.py, models/resnet20.py and utils/timer.py) run with both
+blocked."""
 
 import re
 import subprocess
@@ -22,7 +24,8 @@ def _modules():
 
 
 def test_sources_name_no_jax_or_reference():
-    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py"]:
+    for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
+                 ROOT / "examples" / "torch_resnet20_infer.py"]:
         text = path.read_text()
         assert not FORBIDDEN.search(text), f"{path} imports jax or tpu_fhe"
 
@@ -185,6 +188,56 @@ def test_bootstrap_runs_with_jax_blocked():
         "out = boot.eval_bootstrap(ct, slots)\n"
         "assert out.chain_index < ct.chain_index\n"
         "assert np.max(np.abs(enc.decode(sk.decrypt(out), slots=slots).real - x)) < 1e-4\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_resnet20_stem_runs_with_jax_blocked():
+    """resnet20_infer's stem (a device-encoded conv, batch norm and
+    relu_composite with its three bootstraps) on a q32 context at N = 64,
+    width 4, on the CPU, in a process where importing jax or tpu_fhe fails:
+    within 1e-4 of the float64 shadow with the same sign composite, with the
+    timer buckets filled."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "import numpy as np\n"
+        "from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.models import resnet20 as rn\n"
+        "from tpu_fhe_torch.models.dnn import DNN, relu_composite_clear\n"
+        "from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "from tpu_fhe_torch.utils import timer\n"
+        "n, depth = 64, 23\n"
+        "mods = CoeffModulus.create_composite(n, 58, depth, degree=2, anchor_bits=30,\n"
+        "                                     special_bits=30, special_count=depth + 1)\n"
+        "ctx = FheContext(EncryptionParameters(SchemeType.ckks, n, tuple(mods),\n"
+        "    special_modulus_size=depth + 1, composite_degree=2, allow_insecure=True),\n"
+        "    device='cpu')\n"
+        "sk, enc = SecretKey(ctx, seed=1), CkksEncoder(ctx)\n"
+        "model = DNN(ctx, enc)\n"
+        "rn.prepare_resnet20(model, sk, width=4, layers=1)\n"
+        "boot = CkksBootstrapper(ctx, enc)\n"
+        "boot.set_sine_params(28, 3, 44)\n"
+        "boot.setup(level_budget=(2, 2), slots=16)\n"
+        "boot.keygen(sk, 16)\n"
+        "model.mul_key = boot.mul_key\n"
+        "rng = np.random.default_rng(17)\n"
+        "w = rn.random_weights(rng, planes=(1, 1, 1))\n"
+        "img = rng.uniform(-0.5, 0.5, (4, 4, 3))\n"
+        "out = rn.resnet20_infer(model.enc_tensor(img, sk=sk), model, boot, w,\n"
+        "                        log=lambda m: None, blocks=0, layers=1)\n"
+        "want = rn.resnet20_infer_clear(img, w, relu=relu_composite_clear, blocks=0,\n"
+        "                               layers=1)\n"
+        "assert np.max(np.abs(model.dec_tensor(out, sk) - want)) < 1e-4\n"
+        "assert timer.counts() == {'Convolution': 1, 'BatchNorm': 1, 'Relu': 3,\n"
+        "                          'Bootstrap': 3}\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

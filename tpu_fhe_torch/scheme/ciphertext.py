@@ -4,6 +4,9 @@ Port of ``tpu_fhe/scheme/ciphertext.py`` (CKKS metadata: chain index,
 scale, FLEXIBLEAUTO noise-scale degree), without pytree registration:
 ``data`` is an int64 tensor of canonical residues and operations return
 new objects.  Ciphertexts are always in NTT form in this slice.
+``stack_cts`` / ``unstack_cts`` gather same-metadata ciphertexts into one
+whose data has a leading batch axis, so that one torch op serves every
+channel of a DNN layer.
 """
 
 from __future__ import annotations
@@ -26,6 +29,28 @@ class Ciphertext:
 
     def with_data(self, data: torch.Tensor) -> "Ciphertext":
         return replace(self, data=data)
+
+
+def _meta(ct: Ciphertext) -> tuple:
+    return ct.chain_index, ct.scale, ct.noise_scale_deg
+
+
+def stack_cts(cts: list[Ciphertext]) -> Ciphertext:
+    """One ciphertext whose data is (B, size, L, N), from B ciphertexts of
+    equal metadata (chain index, scale, noise-scale degree), which the
+    batch shares; raises ValueError on mismatched metadata."""
+    first = cts[0]
+    for c in cts[1:]:
+        if _meta(c) != _meta(first):
+            raise ValueError(f"stack_cts: mismatched ciphertext metadata "
+                             f"({_meta(c)} != {_meta(first)})")
+    return first.with_data(torch.stack([c.data for c in cts]))
+
+
+def unstack_cts(ct: Ciphertext, batch: int) -> list[Ciphertext]:
+    """The inverse of stack_cts: the first `batch` entries of the leading
+    axis as ciphertexts of the shared metadata."""
+    return [ct.with_data(ct.data[i]) for i in range(batch)]
 
 
 @dataclass(frozen=True)

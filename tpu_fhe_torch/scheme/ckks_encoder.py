@@ -18,6 +18,11 @@ bit-identical to the reference's.
 (Ql followed by the special primes P) for the bootstrap's plaintexts that
 multiply hoisted ciphertexts; the QlP NTT view is the context's cached
 ``ntt_view`` of the key-level tables.
+
+``embed_for_slots`` and ``encode_coeff_rows`` split an encode in two for
+the DNN's convolution masks: the unscaled embedding of a slot vector, kept
+per mask, and the scale-round-decompose-NTT of such rows (weight-multiplied
+or not), batched like ``encode_ext_batch``.
 """
 
 from __future__ import annotations
@@ -130,15 +135,43 @@ class CkksEncoder:
                          noise_scale_deg: int = 1) -> list[Plaintext]:
         """encode_ext of every vector of `values_list`, with one
         host-to-device copy and one batched forward NTT for the lot."""
-        base, ntt = self._ext_tables(chain_index)
-        planes = []
+        rows = []
         for values in values_list:
             values = np.asarray(values, dtype=np.complex128).ravel()
             s = slots if slots is not None else len(values)
             if s & (s - 1):
                 raise ValueError("slot count must be a power of two")
-            planes.append(_round_decompose(self._embed_inverse_slots(values, s) * scale, base))
-        poly = forward_ntt(self._word(np.stack(planes)), ntt)         # (B, QlP, N)
+            rows.append(self._embed_inverse_slots(values, s))
+        return self.encode_coeff_rows(rows, scale, chain_index, ext=True,
+                                      noise_scale_deg=noise_scale_deg)
+
+    def embed_for_slots(self, values, slots: int) -> np.ndarray:
+        """The inverse embedding of a `slots`-slot vector, unscaled: the
+        coefficient rows ``encode`` would scale and round.  It is linear,
+        so encode(w * v, s) == round(embed_for_slots(v, slots) * (w * s))."""
+        values = np.asarray(values, dtype=np.complex128).ravel()
+        if len(values) < slots:
+            values = np.pad(values, (0, slots - len(values)))
+        if slots & (slots - 1):
+            raise ValueError("slot count must be a power of two")
+        if slots > self.slots:
+            raise ValueError("too many values for ring degree")
+        return self._embed_inverse_slots(values, slots)
+
+    def encode_coeff_rows(self, rows, scale: float, chain_index: int, ext: bool = False,
+                          noise_scale_deg: int = 1) -> list[Plaintext]:
+        """Plaintexts of pre-embedded coefficient rows (``embed_for_slots``
+        outputs, optionally weight-multiplied): scale, round, RNS-decompose
+        and forward-NTT, all rows in one host-to-device copy and one batched
+        NTT.  With `ext` at the extended basis QlP (for multiplying hoisted
+        ciphertexts), else at the level's basis."""
+        if ext:
+            base, ntt = self._ext_tables(chain_index)
+        else:
+            level = self.context.level(chain_index)
+            base, ntt = level.base, level.ntt
+        planes = np.stack([_round_decompose(np.asarray(r) * scale, base) for r in rows])
+        poly = forward_ntt(self._word(planes), ntt)
         return [Plaintext(data=poly[i], chain_index=chain_index, scale=scale,
                           noise_scale_deg=noise_scale_deg) for i in range(len(planes))]
 
