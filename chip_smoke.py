@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's CKKS slices on one NVIDIA GPU.
+"""Drive the PyTorch/CUDA port's CKKS, BFV and BGV slices on one NVIDIA GPU.
 
 Run from the root of the repository, with no arguments:
 
@@ -110,9 +110,10 @@ plaintexts freed before the second's are made):
     the reference's precision less half a bit (14.1 u64, 12.9 q32) or at
     other than 4 levels after;
 11. at N = 2^12 (level budget (2, 2), the default sine set, three levels
-    after), the dense bootstrap, the sparse one (64 slots) and a
-    two-iteration Meta-BTS through the kernels, each bit-identical to the
-    same through the plain versions and decoding to more than 10 bits.
+    after), a two-iteration dense Meta-BTS (whose first iteration is the
+    dense bootstrap) and the sparse bootstrap (64 slots) through the
+    kernels, each bit-identical to the same through the plain versions and
+    decoding to more than 10 bits.
 
 Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
 (tpu_fhe_torch/models/dnn.py, resnet20.py):
@@ -147,9 +148,36 @@ kernel with the launches the wrappers counted in the same run; a window
 that falls short lost events and is taken again, up to 3 in all, and is
 printed as undercounted if the last still falls short.
 
+Then BFV and BGV (tpu_fhe_torch/scheme/bfv.py, bgv.py, batch_encoder.py,
+eval/bfv_eval.py, bgv_eval.py), the ResNet-20 context freed:
+
+14. at N = 2^16 on benchmarks/bfv_bench.py's recipe widened to the
+    HomomorphicEncryption.org bound ([60] + [54] * 30 + [60], 1740 bits,
+    the bound enforced; t the 20-bit batching prime, one special prime):
+    five contexts (BFV on BEHZ and on each HPS form -- hps, hps_overq,
+    hps_overq_leveled -- sharing one key set, and BGV with its own), the
+    host seconds of each context, its BEHZ or HPS tables and keygen, the
+    key bytes; one pass of each context's traffic through the entry points
+    (BFV: bfv_bench.py's ops, public-key encryption, rotate_columns and
+    add_plain; BGV: bgv_bench.py's ops, a depth-2 chain with
+    mod_switch_to_next and a rotation of a switched ciphertext, which must
+    keep its correction factor), every decryption equal to the numpy
+    cleartext result mod t slot for slot and BFV's noise budget printed
+    and above 0 after each op; the launches of each kernel in that pass
+    (counters set to 0 first, every wrapper call recorded); ms per op (CUDA
+    events, median of 5 after a warm-up) and the launches of one multiply
+    and one relinearize per context; a profile of one BEHZ multiply and
+    relinearize (the port's kernels against the glue, the lost-events
+    check); every kernel against its plain version at every distinct shape
+    of the pass (K3 with its `pre` operand, K12 at k = 63 and K1/K2 on the
+    Bsk and QlRl tables must be among them), each kernel's widest timed and
+    bounded; peak memory; then at N = 2^12 on 8 primes one pass of the same
+    traffic, keygen included, through the kernels equal to the same
+    through the plain versions, bit for bit, metadata included.
+
 Each phase's seconds, then the kernels line (every kernel of both plans,
 its launches summed over the requests, rotations, EvalMod, raise_mod, the
-flagship bootstrap, the DNN layers and the ResNet-20 inference, its
+flagship bootstrap, the DNN layers, the ResNet-20 inference and phase 14, its
 headline numbers and under "checks" each shape it was held at with that
 shape's ms, plain ms and bound) and the line {"ok": true, "device":
 {...}}.
@@ -356,12 +384,19 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seconds["13"] = time.time() - t0
+    # -- 14. BFV and BGV at N = 2^16 (their keys freed at the phase's end)
+    t0 = time.time()
+    plans[0]["bfv"] = bfv_bgv_phase(plans[0]["ck"], card)
+    plans[1]["bfv"] = dict.fromkeys(plans[1]["launches"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["14"] = time.time() - t0
     log("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     line = []
     for plan in plans:
         line += plan["ck"].line({name: count + plan["emod"][name] + plan["raised"][name]
                                  + plan["boot"][name] + plan["dnn"][name]
-                                 + plan["resnet"][name]
+                                 + plan["resnet"][name] + plan["bfv"][name]
                                  for name, count in plan["launches"].items()})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1048,12 +1083,18 @@ def path_wrappers() -> dict:
 @contextlib.contextmanager
 def swapped_wrappers(make):
     """Within this block the modules that call the path's wrappers
-    (path_wrappers) call make(name, wrapper) in their place."""
-    from tpu_fhe_torch.eval import auto, evaluator as ev
+    (path_wrappers) call make(name, wrapper) in their place: the CKKS
+    evaluator, auto, the DNN layers, both encoders, BFV's and BGV's schemes
+    and evaluators, the keys, and ops/bconv.py's BEHZ/HPS conversions, which
+    call bconv_matmul."""
+    from tpu_fhe_torch.eval import auto, bfv_eval, bgv_eval, evaluator as ev
     from tpu_fhe_torch.models import dnn
-    from tpu_fhe_torch.scheme import ckks_encoder
+    from tpu_fhe_torch.ops import bconv
+    from tpu_fhe_torch.scheme import batch_encoder, bfv, bgv, ckks_encoder, keys
 
-    saved = [(mod, name, getattr(mod, name)) for mod in (ev, auto, dnn, ckks_encoder)
+    saved = [(mod, name, getattr(mod, name))
+             for mod in (ev, auto, dnn, ckks_encoder, bfv_eval, bgv_eval, bfv, bgv,
+                         batch_encoder, keys, bconv)
              for name in path_wrappers() if hasattr(mod, name)]
     for mod, name, fn in saved:
         setattr(mod, name, make(name, fn))
@@ -1181,7 +1222,9 @@ def path_checks(tag: str, what: str, ck: Checker, calls: dict, launches: dict) -
 
 
 def _meta(c) -> tuple:
-    return c.chain_index, c.scale, c.noise_scale_deg
+    """A ciphertext's or plaintext's metadata: every field but the data."""
+    return (c.chain_index, c.scale, c.noise_scale_deg, getattr(c, "correction_factor", None),
+            c.is_ntt_form, getattr(c, "is_asymmetric", None))
 
 
 def plain_matches(tag: str, what: str, ck: Checker, run, got: list) -> None:
@@ -1909,10 +1952,11 @@ def flagship_phase(tag: str, ck: Checker, card: str) -> dict:
 def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
     """Phase 11: at N = 2^12 (examples/bootstrap_ckks.py --logn 12 --levels-after
     3: level budget (2, 2), the default sine set K = 512, r = 6, degree 88),
-    the dense bootstrap, the sparse one (64 slots) and a two-iteration
-    Meta-BTS through the kernels, each bit-identical to the same through the
-    plain versions, each decoding to at least BOOT11_MIN_BITS, and the
-    Meta-BTS not returning its input.  The example takes the sparse set
+    a two-iteration dense Meta-BTS (its first iteration is the dense
+    bootstrap, which no longer runs alone: phase 14 took its time) and the
+    sparse bootstrap (64 slots) through the kernels, each bit-identical to the
+    same through the plain versions, each decoding to at least
+    BOOT11_MIN_BITS, and the Meta-BTS not returning its input.  The example takes the sparse set
     K = 28, r = 3, degree 44 up to 2^13, but with a uniform ternary secret
     the integer part of the raised plaintext passes K from 2^11 on and the
     sine's Chebyshev series is evaluated outside [-1, 1]: the output does not
@@ -1926,7 +1970,7 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
     t0 = time.time()
     ctx = boot_context(tag, SMALL_N, UNIFORM_SINE, (2, 2), levels_after=3)
     sk, enc = SecretKey(ctx, seed=2025), CkksEncoder(ctx)
-    for slots, runs in ((SMALL_N // 2, (1, 2)), (SMALL_SLOTS, (1,))):
+    for slots, runs in ((SMALL_N // 2, (2,)), (SMALL_SLOTS, (1,))):
         boot = CkksBootstrapper(ctx, enc)
         boot.setup(level_budget=(2, 2), slots=slots)
         boot.keygen(sk, slots)
@@ -2200,6 +2244,324 @@ def resnet_phase(ck: Checker, card: str) -> dict:
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
     # after the profile: each timed check captures and replays a CUDA graph
     path_checks("q32", "ResNet-20 inference", ck, calls, launches)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# BFV and BGV at N = 2^16 (phase 14)
+# --------------------------------------------------------------------------
+
+BFV_N = 1 << 16
+# benchmarks/bfv_bench.py's recipe (:37-46) at --n 65536 --num-data 31
+# --data-bits 54 --t-bits 20: [60] + [54] * 30 + [60] (31 data limbs, one
+# special), 1740 bits, within the HomomorphicEncryption.org bound for 2^16
+# (1777 bits), which the context enforces; the same chain serves BGV
+# (benchmarks/bgv_bench.py:37-45)
+BFV_BITS = [60] + [54] * 30 + [60]
+BFV_T_BITS = 20
+BFV_FORMS = ("behz", "hps", "hps_overq", "hps_overq_leveled")
+BFV_PLAIN_N = 1 << 12                    # the pass against the plain versions
+BFV_PLAIN_BITS = [60] + [54] * 6 + [60]
+BFV_STEP = 1
+OP_SAMPLES = 5
+
+
+def fhe_context(scheme: str, n: int, bits: list, tech: str = "behz", secure: bool = True):
+    """A BFV or BGV context on the card with t the BFV_T_BITS batching prime
+    and one special prime; the security bound is enforced when `secure`."""
+    from tpu_fhe_torch.core.modulus import CoeffModulus, PlainModulus
+    from tpu_fhe_torch.core.params import EncryptionParameters, MulTech, SchemeType
+    from tpu_fhe_torch.scheme.context import FheContext
+
+    return FheContext(EncryptionParameters(
+        getattr(SchemeType, scheme), n, tuple(CoeffModulus.create(n, bits)),
+        special_modulus_size=1, plain_modulus=PlainModulus.batching(n, BFV_T_BITS),
+        mul_tech=getattr(MulTech, tech), allow_insecure=not secure))
+
+
+def bfv_bgv_ops(scheme: str, tools, enc, sk, keys: dict, vals: list, seed: int) -> dict:
+    """The traffic of one context: name -> (fn, the slots its decryption
+    must equal, or None for a non-ciphertext result).  BFV: the ops of
+    benchmarks/bfv_bench.py's table (:60-70) plus public-key encryption,
+    rotate_columns and add_plain; BGV: benchmarks/bgv_bench.py's ops plus a
+    depth-2 chain with mod_switch_to_next and a rotation of a switched
+    ciphertext, which keeps its correction factor.  Encodes and encrypts
+    its operands when called; every fn is deterministic."""
+    import torch
+
+    from tpu_fhe_torch.eval import bfv_eval as bv, bgv_eval as bg
+
+    ctx = tools.context
+    t = tools.t.value
+    a, b, m = (v.astype(object) for v in vals)
+    half = ctx.n // 2
+    pa, pb, pm = enc.encode(vals[0]), enc.encode(vals[1]), enc.encode(vals[2])
+    ca = tools.encrypt_symmetric(sk, pa)
+    cb = tools.encrypt_asymmetric(keys["pk"], pb,
+                                  torch.Generator(device=ctx.device).manual_seed(seed))
+    rows = a.reshape(2, half)
+    rot = np.roll(rows, -BFV_STEP, axis=1).reshape(-1)
+    ops = {
+        "encode": (lambda: enc.encode(vals[0]), None),
+        "encrypt_sym": (lambda: tools.encrypt_symmetric(sk, pa), a),
+        "encrypt_asym": (lambda: tools.encrypt_asymmetric(
+            keys["pk"], pb, torch.Generator(device=ctx.device).manual_seed(seed)), b),
+        "decrypt": (lambda: tools.decrypt(sk, ca), None),
+    }
+    if scheme == "bfv":
+        prod = bv.multiply(tools, ca, cb)
+        ops.update({
+            "add": (lambda: bv.add(ctx, ca, cb), (a + b) % t),
+            "multiply": (lambda: bv.multiply(tools, ca, cb), a * b % t),
+            "relinearize": (lambda: bv.relinearize(tools, prod, keys["rlk"]), a * b % t),
+            "multiply_plain": (lambda: bv.multiply_plain(tools, ca, pm), a * m % t),
+            "add_plain": (lambda: bv.add_plain(tools, ca, pm), (a + m) % t),
+            "rotate_rows": (lambda: bv.rotate_rows(tools, ca, BFV_STEP, keys["gk"]), rot),
+            "rotate_columns": (lambda: bv.rotate_columns(tools, ca, keys["gk"]),
+                               rows[::-1].reshape(-1)),
+            "mod_switch": (lambda: bv.mod_switch_to_next(tools, ca), a),
+        })
+        return ops
+    prod = bg.multiply(tools, ca, cb)
+    ms_a = bg.mod_switch_to_next(tools, ca)
+    sq = bg.mod_switch_to_next(tools, bg.relinearize(ctx, bg.multiply(tools, ca, ca),
+                                                     keys["rlk"]))
+    ops.update({
+        "add": (lambda: bg.add(tools, ca, cb), (a + b) % t),
+        "multiply": (lambda: bg.multiply(tools, ca, cb), a * b % t),
+        "relinearize": (lambda: bg.relinearize(ctx, prod, keys["rlk"]), a * b % t),
+        "multiply_plain": (lambda: bg.multiply_plain(tools, ca, pm), a * m % t),
+        "rotate": (lambda: bg.rotate(ctx, ca, BFV_STEP, keys["gk"]), rot),
+        "mod_switch": (lambda: bg.mod_switch_to_next(tools, ca), a),
+        "rotate_switched": (lambda: bg.rotate(ctx, ms_a, BFV_STEP, keys["gk"]), rot),
+        "square_switch": (lambda: bg.mod_switch_to_next(tools, bg.relinearize(
+            ctx, bg.multiply(tools, ca, ca), keys["rlk"])), a * a % t),
+        "depth2_switch": (lambda: bg.mod_switch_to_next(tools, bg.relinearize(
+            ctx, bg.multiply(tools, sq, sq), keys["rlk"])), a ** 4 % t),
+    })
+    return ops
+
+
+def bfv_bgv_keys(scheme: str, ctx, seed: int) -> tuple:
+    """The secret key and the keys of the traffic: public, relin (with
+    Shoup words) and Galois keys for BFV_STEP and the row swap (without)."""
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    sk = SecretKey(ctx, seed=seed)
+    return sk, dict(pk=sk.public_key(), rlk=sk.relin_key(),
+                    gk=sk.galois_key([BFV_STEP], include_conj=True))
+
+
+def bfv_bgv_run(forms: list, n: int, check: bool) -> list:
+    """One pass of every context's traffic; with `check`, each decryption
+    equals its cleartext slots (and each ciphertext's correction factor is
+    its input's after a rotation), BFV's noise budget is printed and must
+    stay above 0.  Returns every result: ciphertexts and plaintexts."""
+    rng = np.random.default_rng(n)
+    outs = []
+    for form in forms:
+        scheme, tools, enc, sk, keys = (form[k] for k in ("scheme", "tools", "enc", "sk",
+                                                            "keys"))
+        t = tools.t.value
+        vals = [rng.integers(0, t, size=n, dtype=np.uint64) for _ in range(3)]
+        ops = bfv_bgv_ops(scheme, tools, enc, sk, keys, vals, seed=n + 1)
+        budgets = {}
+        for name, (fn, want) in ops.items():
+            got = fn()
+            outs.append(got)
+            if not check:
+                continue
+            if name == "encode":
+                dec = enc.decode(got)
+                want = vals[0]
+            elif name == "decrypt":
+                dec, want = enc.decode(got), vals[0]
+            else:
+                dec = enc.decode(tools.decrypt(sk, got))
+                if scheme == "bfv":
+                    budgets[name] = tools.invariant_noise_budget(sk, got)
+            if not np.array_equal(dec.astype(object), np.asarray(want, dtype=object)):
+                fail(f"{form['tag']} {name}: the decryption differs from the cleartext "
+                     "result mod t")
+        if check and scheme == "bgv":
+            rot, ms = ops["rotate_switched"][0](), ops["mod_switch"][0]()
+            if rot.correction_factor != ms.correction_factor or ms.correction_factor == 1:
+                fail(f"{form['tag']}: the rotation changed the correction factor "
+                     f"{ms.correction_factor} -> {rot.correction_factor}")
+        if check:
+            log(f"[{form['tag']}] N=2^{n.bit_length() - 1}: every decryption == the "
+                f"cleartext result mod t, slot for slot ({len(ops)} ops)"
+                + (f"; noise budget (bits) after each op: {budgets}" if budgets else ""))
+            if budgets and min(budgets.values()) <= 0:
+                fail(f"{form['tag']}: noise budget exhausted: {budgets}")
+    return outs
+
+
+def bfv_bgv_forms(n: int, bits: list, secure: bool, seed: int, log_setup: bool) -> list:
+    """The contexts of phase 14: BFV on BEHZ and on each HPS form, then BGV,
+    each with its tools, encoder and keys (BFV's shared by the four BFV
+    contexts, whose chains are the same)."""
+    import torch
+
+    from tpu_fhe_torch.scheme.batch_encoder import BatchEncoder
+    from tpu_fhe_torch.scheme.bfv import BfvTools
+    from tpu_fhe_torch.scheme.bgv import BgvTools
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    forms, keys = [], {}
+    for scheme, tech in [("bfv", f) for f in BFV_FORMS] + [("bgv", "behz")]:
+        t0 = time.time()
+        ctx = fhe_context(scheme, n, bits, tech, secure)
+        torch.cuda.synchronize()
+        t1 = time.time()
+        tools = (BfvTools if scheme == "bfv" else BgvTools)(ctx)
+        tools.level_tables(1)
+        if scheme == "bfv" and tech == "behz":
+            tools.behz(1)
+        elif scheme == "bfv":
+            tools.hps(1, 0)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        if scheme not in keys:
+            keys[scheme] = bfv_bgv_keys(scheme, ctx, seed)
+            torch.cuda.synchronize()
+        sk0, kset = keys[scheme]
+        sk = SecretKey(ctx, seed=seed + 1, s_ntt=sk0.s_ntt)
+        t3 = time.time()
+        tag = f"u64 {scheme}" + (f" {tech}" if scheme == "bfv" else "")
+        if log_setup:
+            log(f"[{tag}] N=2^{n.bit_length() - 1}, {ctx.params.size_Q} + "
+                f"{ctx.params.size_P} limbs ({sum(bits)} bits), t = {tools.t.value}: "
+                f"context {t1 - t0:.2f} s, tables {t2 - t1:.2f} s, keygen {t3 - t2:.2f} s "
+                "(host clock, synchronized)")
+        forms.append(dict(tag=tag, scheme=scheme, tech=tech, ctx=ctx, tools=tools,
+                          enc=BatchEncoder(ctx), sk=sk, keys=kset))
+    return forms
+
+
+def bfv_bgv_phase(ck: Checker, card: str) -> dict:
+    """Phase 14: BFV (BEHZ and the three HPS forms) and BGV at N = 2^16,
+    [60] + [54] * 30 + [60] with the security bound enforced, t the 20-bit
+    batching prime, through the entry points (FheContext, BfvTools or
+    BgvTools, BatchEncoder, SecretKey, eval/bfv_eval.py and
+    eval/bgv_eval.py): host seconds of the contexts, tables and keygen, key
+    bytes, one pass of every context's traffic (bfv_bgv_ops) with every
+    decryption equal to its cleartext slots and BFV's noise budget above 0,
+    the launches of each kernel in that pass (counters set to 0 just before;
+    every wrapper call recorded), ms per op (CUDA events, median of
+    OP_SAMPLES after a warm-up), a profile of one BEHZ multiply and
+    relinearize, then every kernel against its plain version at every
+    distinct shape of the pass (K3 with its `pre` operand, K12 at k = 63,
+    K1 and K2 on the Bsk and QlRl tables among them) and peak memory.  Then
+    at N = 2^12 one pass of the same traffic (keygen included) through the
+    kernels equal to the same through the plain versions, bit for bit,
+    metadata included.  Returns the launches of the 2^16 pass."""
+    import torch
+
+    t_phase = time.time()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forms = bfv_bgv_forms(BFV_N, BFV_BITS, True, 2028, log_setup=True)
+
+    def key_bytes(keys) -> int:
+        return sum(k.data.numel() * k.data.element_size()
+                   + (0 if k.shoup is None else k.shoup.numel() * k.shoup.element_size())
+                   for k in keys)
+
+    for form in forms[:1] + forms[-1:]:
+        kset = form["keys"]
+        log(f"[{form['tag']}] keys: relin {tuple(kset['rlk'].data.shape)} with Shoup words "
+            f"{key_bytes([kset['rlk']]) / 2**30:.2f} GiB; {len(kset['gk'].keys)} Galois keys "
+            f"without {key_bytes(kset['gk'].keys.values()) / 2**30:.2f} GiB"
+            + ("; shared by the four BFV contexts" if form["scheme"] == "bfv" else ""))
+    calls: dict = {}
+    torch.cuda.synchronize()
+    ck.reset()
+    t0 = time.time()
+    with recorded_calls(calls):
+        bfv_bgv_run(forms, BFV_N, True)
+    torch.cuda.synchronize()
+    launches = ck.launches()
+    log(f"[u64 bfv/bgv] one pass of the traffic of {len(forms)} contexts in "
+        f"{time.time() - t0:.1f} s (host clock, decryption checks and noise budgets "
+        f"included); launches: {launches}")
+    ck.require_launched("u64 BFV/BGV", launches, ("bconv",))
+
+    # ms per op, after the pass (every operand and table exists)
+    rng = np.random.default_rng(1)
+    for form in forms:
+        vals = [rng.integers(0, form["tools"].t.value, size=BFV_N, dtype=np.uint64)
+                for _ in range(3)]
+        ops = bfv_bgv_ops(form["scheme"], form["tools"], form["enc"], form["sk"],
+                          form["keys"], vals, seed=5)
+        ms = {name: cuda_ms(fn, reps=1, samples=OP_SAMPLES) for name, (fn, _) in ops.items()}
+        for op in ("multiply", "relinearize"):
+            ck.reset()
+            ops[op][0]()
+            log(f"[{form['tag']}] launches in one {op}: "
+                f"{ {k: v for k, v in ck.launches().items() if v} }")
+        log(f"[{form['tag']}] ms per op (CUDA events, median of {OP_SAMPLES} after a "
+            f"warm-up) on {card}: " + ", ".join(f"{k} {v:.3f}" for k, v in ms.items()))
+        if form["tech"] == "behz" and form["scheme"] == "bfv":
+            from tpu_fhe_torch.eval import bfv_eval as bv
+
+            tools, (ca, cb) = form["tools"], [
+                form["tools"].encrypt_symmetric(form["sk"], form["enc"].encode(v))
+                for v in vals[:2]]
+
+            def mul_relin():
+                return bv.relinearize(tools, bv.multiply(tools, ca, cb), form["keys"]["rlk"])
+
+            mr_ms = cuda_ms(mul_relin, reps=1, samples=OP_SAMPLES)
+            log(f"[{form['tag']}] one BEHZ multiply + relinearize: {mr_ms:.3f} ms (CUDA "
+                f"events, median of {OP_SAMPLES}) on {card}")
+            profile_window(form["tag"], "one BEHZ multiply + relinearize", mul_relin, mr_ms,
+                           ck)
+    log(f"[u64 bfv/bgv] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+        f"GiB on {card}")
+    bsk = forms[0]["tools"].behz(1).bsk_ntt
+    qlrl = forms[1]["tools"].hps(1, 0).qlrl_ntt
+    wanted = {"K3 with pre": lambda name, a, kw: name == "forward_ntt_sub_scale"
+              and kw.get("pre") is not None,
+              "K12 at k = 63": lambda name, a, kw: name == "bconv_matmul"
+              and a[0].shape[-2] == 63,
+              "K1 and K2 on Bsk": lambda name, a, kw: name in ("forward_ntt", "inverse_ntt")
+              and a[1] is bsk,
+              "K1 and K2 on QlRl": lambda name, a, kw: name in ("forward_ntt", "inverse_ntt")
+              and a[1] is qlrl}
+    for what, test in wanted.items():
+        hits = [f"{name} {tuple(a[0].shape)}" for name, _, a, kw in calls["args"].values()
+                if test(name, a, kw)]
+        if not hits:
+            fail(f"u64 BFV/BGV: the traffic never called {what}")
+        log(f"[u64 bfv/bgv] recorded {what}: {hits}")
+    del bsk, qlrl
+    path_checks("u64", "BFV/BGV traffic at 2^16", ck, calls, launches)
+    del calls, forms
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # -- the whole traffic through the kernels == through the plain versions
+    t0 = time.time()
+
+    def small_pass() -> list:
+        return bfv_bgv_run(bfv_bgv_forms(BFV_PLAIN_N, BFV_PLAIN_BITS, False, 2029, False),
+                           BFV_PLAIN_N, False)
+
+    outs = small_pass()
+    ck.reset()
+    with plain_versions():
+        want = small_pass()
+    torch.cuda.synchronize()
+    if any(ck.launches().values()):
+        fail("u64 BFV/BGV: the pass through the plain versions launched kernels")
+    if len(outs) != len(want) or not all(torch.equal(g.data, w.data) and _meta(g) == _meta(w)
+                                         for g, w in zip(outs, want)):
+        fail("u64 BFV/BGV: the N=2^12 pass through the kernels differs from the plain versions")
+    log(f"[u64 slice] BFV/BGV at N=2^12 ({len(BFV_PLAIN_BITS)} limbs), keygen, encode, "
+        f"encryption and every op of the 5 contexts ({len(outs)} results): kernels == plain "
+        f"versions, bit for bit, metadata included, in {time.time() - t0:.1f} s")
+    log(f"[u64 bfv/bgv] phase 14 in {time.time() - t_phase:.1f} s")
     return launches
 
 

@@ -7,8 +7,9 @@ inputs and outputs, and each slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum;
 the FLEXIBLEAUTO ops, raise_mod and a Chebyshev series; the encoder's QlP
 plaintexts) on the card against the same slice on the CPU, and one N = 2^12
-bootstrap, one DNN conv and one batch norm through the kernels against
-the same through the plain versions.  Every method of the graph-replaying Evaluator equals the eager
+bootstrap, one DNN conv and one batch norm, and BFV's and BGV's multiply
+paths at N = 2^12, through the kernels against the same through the plain
+versions.  Every method of the graph-replaying Evaluator equals the eager
 op through its CUDA graph, at small rings and at 2^15, and raises when its
 capture fails.
 
@@ -1028,6 +1029,72 @@ def test_dnn_conv_and_batch_norm_kernels_equal_plain(gpu, word, monkeypatch):
     for g, wt in zip(got, want):
         assert (g.chain_index, g.scale, g.noise_scale_deg) == \
             (wt.chain_index, wt.scale, wt.noise_scale_deg)
+        assert torch.equal(g.data, wt.data)
+
+
+@pytest.mark.parametrize("case", ["bfv behz", "bfv hps", "bgv behz"])
+def test_bfv_bgv_kernels_equal_plain(gpu, case, monkeypatch):
+    """At N = 2^12 on [60] + [54]*6 + [60]: a BFV multiply (BEHZ, or HPS
+    with its K12 at k + m = 15) with relinearize, and a BGV multiply,
+    relinearize (K3 with its `pre` operand) and mod_switch_to_next, through
+    the kernels equal the same with every module's kernel wrappers swapped
+    for the plain versions, bit for bit, metadata included; the plain run
+    launches nothing, and the decryptions are the cleartext products."""
+    from tpu_fhe_torch.core.modulus import PlainModulus
+    from tpu_fhe_torch.core.params import MulTech
+    from tpu_fhe_torch.eval import bfv_eval, bgv_eval
+    from tpu_fhe_torch.ops._build import CudaKernel
+    from tpu_fhe_torch.scheme import batch_encoder, bfv, bgv, keys
+
+    scheme, tech = case.split()
+    n = 4096
+    c = FheContext(EncryptionParameters(
+        getattr(SchemeType, scheme), n, tuple(CoeffModulus.create(n, [60] + [54] * 6 + [60])),
+        special_modulus_size=1, plain_modulus=PlainModulus.batching(n, 20),
+        mul_tech=getattr(MulTech, tech), allow_insecure=True), device=gpu)
+    sk = SecretKey(c, seed=10)
+    rlk = sk.relin_key()
+    enc = batch_encoder.BatchEncoder(c)
+    tools = (bfv.BfvTools if scheme == "bfv" else bgv.BgvTools)(c)
+    t = tools.t.value
+    rng = np.random.default_rng(11)
+    a, b = (rng.integers(0, t, size=n, dtype=np.uint64) for _ in range(2))
+    ca, cb = (tools.encrypt_symmetric(sk, enc.encode(v)) for v in (a, b))
+
+    def run():
+        if scheme == "bfv":
+            prod = bfv_eval.multiply(tools, ca, cb)
+            return [prod, bfv_eval.relinearize(tools, prod, rlk)]
+        prod = bgv_eval.multiply(tools, ca, cb)
+        lin = bgv_eval.relinearize(c, prod, rlk)
+        return [prod, lin, bgv_eval.mod_switch_to_next(tools, lin)]
+
+    got = run()
+    want_slots = (a.astype(object) * b.astype(object)) % t
+    for ct in got:
+        np.testing.assert_array_equal(enc.decode(tools.decrypt(sk, ct)), want_slots)
+    swaps = dict(forward_ntt=ntt.forward_ntt_plain, inverse_ntt=ntt.inverse_ntt_plain,
+                 inverse_ntt_scaled=ntt.inverse_ntt_plain,
+                 forward_ntt_sub_scale=ntt.forward_ntt_sub_scale_plain,
+                 bconv_matmul=bconv.bconv_matmul_plain,
+                 key_inner_prod=ks.key_inner_prod_plain,
+                 key_inner_prod_shoup=ks.key_inner_prod_shoup_plain)
+    for mod in (ev, bfv_eval, bgv_eval, bfv, bgv, batch_encoder, keys, bconv):
+        for name, fn in swaps.items():
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, fn)
+    kernels = [k for mod in (ntt, bconv, ks) for k in vars(mod).values()
+               if isinstance(k, CudaKernel)]
+    for k in kernels:
+        k.launches = 0
+    want = run()
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in kernels if k.launches} == {}, \
+        "the run through the plain versions launched kernels"
+    for g, wt in zip(got, want):
+        assert (g.chain_index, g.scale, g.noise_scale_deg, g.correction_factor, g.is_ntt_form,
+                g.is_asymmetric) == (wt.chain_index, wt.scale, wt.noise_scale_deg,
+                                     wt.correction_factor, wt.is_ntt_form, wt.is_asymmetric)
         assert torch.equal(g.data, wt.data)
 
 

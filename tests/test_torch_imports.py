@@ -1,11 +1,11 @@
-"""tpu_fhe_torch, chip_smoke.py and examples/torch_resnet20_infer.py import
-neither jax nor tpu_fhe, and the port's slices (the u64 plan's and the q32
+"""tpu_fhe_torch, chip_smoke.py and the port's examples (examples/torch_*.py)
+import neither jax nor tpu_fhe, and the port's slices (the u64 plan's and the q32
 plan's modules alike, the rotation path of ops/galois.py and
 eval/hoisting.py, the evaluation layer of eval/auto.py, eval/chebyshev.py
 and eval/jit.py, the bootstrap of boot/boot_math.py and boot/bootstrap.py
 with the encoder's QlP forms, and the PPML layers and ResNet-20 of
-models/dnn.py, models/resnet20.py and utils/timer.py) run with both
-blocked."""
+models/dnn.py, models/resnet20.py and utils/timer.py, and BFV and BGV with
+the batch encoder) run with both blocked."""
 
 import re
 import subprocess
@@ -25,7 +25,7 @@ def _modules():
 
 def test_sources_name_no_jax_or_reference():
     for path in [*PKG.rglob("*.py"), ROOT / "chip_smoke.py",
-                 ROOT / "examples" / "torch_resnet20_infer.py"]:
+                 *(ROOT / "examples").glob("torch_*.py")]:
         text = path.read_text()
         assert not FORBIDDEN.search(text), f"{path} imports jax or tpu_fhe"
 
@@ -238,6 +238,49 @@ def test_resnet20_stem_runs_with_jax_blocked():
         "assert np.max(np.abs(model.dec_tensor(out, sk) - want)) < 1e-4\n"
         "assert timer.counts() == {'Convolution': 1, 'BatchNorm': 1, 'Relu': 3,\n"
         "                          'Bootstrap': 3}\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_bfv_bgv_run_with_jax_blocked():
+    """BFV (BEHZ multiply, relinearize, rotate_rows) and BGV (multiply,
+    relinearize, mod_switch_to_next) with the batch encoder at N = 256 on the
+    CPU, in a process where importing jax or tpu_fhe fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "import numpy as np\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus, PlainModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.eval import bfv_eval as bv, bgv_eval as bg\n"
+        "from tpu_fhe_torch.scheme.batch_encoder import BatchEncoder\n"
+        "from tpu_fhe_torch.scheme.bfv import BfvTools\n"
+        "from tpu_fhe_torch.scheme.bgv import BgvTools\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "n = 256\n"
+        "t = PlainModulus.batching(n, 20)\n"
+        "a = np.random.default_rng(0).integers(0, t.value, n, dtype=np.uint64)\n"
+        "want = a.astype(object) * a.astype(object) % t.value\n"
+        "for scheme, Tools in ((SchemeType.bfv, BfvTools), (SchemeType.bgv, BgvTools)):\n"
+        "    ctx = FheContext(EncryptionParameters(scheme, n,\n"
+        "        tuple(CoeffModulus.create(n, [50, 50, 50, 60])), special_modulus_size=1,\n"
+        "        plain_modulus=t, allow_insecure=True), device='cpu')\n"
+        "    sk, enc, tools = SecretKey(ctx, seed=1), BatchEncoder(ctx), Tools(ctx)\n"
+        "    ct = tools.encrypt_symmetric(sk, enc.encode(a))\n"
+        "    ev = bv if scheme == SchemeType.bfv else bg\n"
+        "    first = tools if scheme == SchemeType.bfv else ctx\n"
+        "    sq = ev.relinearize(first, ev.multiply(tools, ct, ct), sk.relin_key())\n"
+        "    assert np.array_equal(enc.decode(tools.decrypt(sk, sq)), want)\n"
+        "    sw = ev.mod_switch_to_next(tools, sq)\n"
+        "    assert np.array_equal(enc.decode(tools.decrypt(sk, sw)), want)\n"
+        "    if scheme == SchemeType.bfv:\n"
+        "        r = bv.rotate_rows(tools, ct, 1, sk.galois_key([1]))\n"
+        "        assert np.array_equal(enc.decode(tools.decrypt(sk, r)).reshape(2, -1),\n"
+        "                              np.roll(a.reshape(2, -1), -1, axis=1))\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)

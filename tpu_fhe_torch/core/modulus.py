@@ -3,7 +3,8 @@
 The port's own copy of ``tpu_fhe/core/modulus.py``: 61-bit max
 NTT-friendly primes, Barrett const ratios (floor(2^128/q) as two 64-bit
 words + remainder), HomomorphicEncryption.org security tables, and the
-composite-scaling chain builder of the q32 regime (every prime < 2^30).
+composite-scaling chain of the q32 regime (every prime < 2^30), and
+the batching plain modulus of BFV/BGV.
 """
 
 from __future__ import annotations
@@ -158,3 +159,11 @@ class CoeffModulus:
             sf = partial if sf is None else sf * sf / partial
         data = [p for g in reversed(groups) for p in g]
         return [Modulus(p) for p in anchor + data + specials]
+
+
+class PlainModulus:
+    @staticmethod
+    def batching(poly_modulus_degree: int, bit_size: int) -> Modulus:
+        """The largest prime t = 1 mod 2N of `bit_size` bits: t supports
+        batching (N slots)."""
+        return Modulus(numth.get_primes(poly_modulus_degree, bit_size, 1)[0])

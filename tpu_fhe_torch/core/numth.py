@@ -1,8 +1,8 @@
 """Number-theory helpers (host side, exact Python integers).
 
-The port's own copy of ``tpu_fhe/core/numth.py``, limited to what the CKKS
-slice needs: primality testing, the NTT-friendly prime searches (by bit
-size, and nearest to a target), minimal primitive 2N-th roots of unity and
+The port's own copy of ``tpu_fhe/core/numth.py``, limited to what the port
+needs: primality testing, the NTT-friendly prime searches (by bit size,
+below a bound, and nearest to a target), minimal primitive 2N-th roots of unity and
 the non-adjacent form that decomposes a rotation step.  The reference's
 ctypes fast path for the prime search is not ported; the pure-Python
 search below is the same deterministic descending walk, so it yields the
@@ -92,6 +92,23 @@ def get_primes(ntt_size: int, bit_size: int, count: int) -> list[int]:
     factor = 2 * ntt_size
     value = (1 << bit_size) - factor + 1
     lower_bound = 1 << (bit_size - 1)
+    out: list[int] = []
+    while len(out) < count and value > lower_bound:
+        if is_prime(value):
+            out.append(value)
+        value -= factor
+    if len(out) < count:
+        raise RuntimeError("failed to find enough qualifying primes")
+    return out
+
+
+def get_primes_below(ntt_size: int, upper_bound: int, count: int) -> list[int]:
+    """NTT-friendly primes strictly below `upper_bound`, found by the same
+    descending walk in steps of 2*ntt_size, of upper_bound's bit length
+    (HPS's auxiliary base R)."""
+    factor = 2 * ntt_size
+    value = upper_bound - factor
+    lower_bound = 1 << (upper_bound.bit_length() - 1)
     out: list[int] = []
     while len(out) < count and value > lower_bound:
         if is_prime(value):

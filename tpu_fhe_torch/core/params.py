@@ -1,7 +1,9 @@
-"""Encryption parameters (scheme, ring degree, modulus chain).
+"""Encryption parameters (scheme, ring degree, modulus chain, plain modulus,
+BFV multiplication technique).
 
-The port's own copy of ``tpu_fhe/core/params.py`` for CKKS, with the
-composite-scaling degree of the q32 regime.
+The port's own copy of ``tpu_fhe/core/params.py``: CKKS with the
+composite-scaling degree of the q32 regime, and BFV/BGV with their plain
+modulus t and BFV's multiplication technique.
 """
 
 from __future__ import annotations
@@ -19,6 +21,17 @@ class SchemeType(enum.Enum):
     bgv = 3
 
 
+class MulTech(enum.Enum):
+    """BFV multiplication technique: BEHZ's auxiliary base, or HPS's
+    scale-and-round in one of its three forms."""
+
+    none = 0
+    behz = 1
+    hps = 2
+    hps_overq = 3
+    hps_overq_leveled = 4
+
+
 @dataclass(frozen=True)
 class EncryptionParameters:
     scheme: SchemeType
@@ -26,6 +39,9 @@ class EncryptionParameters:
     coeff_modulus: tuple[Modulus, ...]
     # Number of trailing special (key-switching) primes P; hybrid KS.
     special_modulus_size: int = 1
+    # BFV/BGV: the plain modulus t, and BFV's multiplication technique.
+    plain_modulus: Modulus | None = None
+    mul_tech: MulTech = MulTech.behz
     # Composite scaling (CKKS, q32 regime): one logical level spans this
     # many RNS limbs, so a ~2^56 working scale is built from pairs of
     # ~28-30-bit primes.  1 = classic single-prime levels.
@@ -44,6 +60,8 @@ class EncryptionParameters:
             raise ValueError("special_modulus_size must be >= 1 (hybrid KS)")
         if self.special_modulus_size >= len(self.coeff_modulus):
             raise ValueError("special_modulus_size must leave at least one data prime")
+        if self.scheme in (SchemeType.bfv, SchemeType.bgv) and self.plain_modulus is None:
+            raise ValueError("BFV/BGV require a plain modulus")
         values = [m.value for m in self.coeff_modulus]
         if len(set(values)) != len(values):
             raise ValueError("coeff modulus primes must be distinct")

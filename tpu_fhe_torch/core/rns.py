@@ -1,9 +1,10 @@
 """RNS bases and base-converter precomputation (host side, exact ints).
 
-The port's own copy of the parts of ``tpu_fhe/core/rns.py`` the CKKS
-keyswitch uses: punctured products q_hat_i = Q/q_i and their inverses mod
-q_i (with Shoup words), the BEHZ cross-base table q_hat mod p, and the
-hybrid-keyswitch digit decomposition.
+The port's own copy of ``tpu_fhe/core/rns.py``: punctured products
+q_hat_i = Q/q_i and their inverses mod q_i (with Shoup words), CRT
+decompose/compose, the BEHZ cross-base table q_hat mod p and HPS's
+alpha*Q mod p correction rows, and the hybrid-keyswitch digit
+decomposition.
 """
 
 from __future__ import annotations
@@ -57,13 +58,31 @@ class RNSBase:
             for i, m in enumerate(self.base)
         )
 
-    def extend(self, other: "RNSBase") -> "RNSBase":
-        """This base followed by `other`'s moduli, which must be coprime to
-        every one of this base's."""
-        for m in other.base:
+    def extend(self, other: "Modulus | RNSBase") -> "RNSBase":
+        """This base followed by `other` (one modulus or a base's moduli),
+        each of which must be coprime to every one of this base's."""
+        extra = (other,) if isinstance(other, Modulus) else other.base
+        for m in extra:
             if any(numth.gcd(m.value, mine.value) != 1 for mine in self.base):
                 raise ValueError("cannot extend by non-coprime modulus")
-        return RNSBase(self.base + other.base)
+        return RNSBase(self.base + extra)
+
+    def drop(self, count: int = 1) -> "RNSBase":
+        """This base without its last `count` moduli."""
+        if len(self.base) <= count:
+            raise ValueError("cannot drop all moduli")
+        return RNSBase(self.base[:-count])
+
+    def decompose(self, value: int) -> list[int]:
+        """Big int -> RNS residues."""
+        return [value % m.value for m in self.base]
+
+    def compose(self, residues: list[int]) -> int:
+        """RNS residues -> the big int in [0, Q) by CRT."""
+        acc = 0
+        for i, m in enumerate(self.base):
+            acc += (residues[i] * self.q_hat_inv_mod_q[i]) % m.value * self.punctured_products[i]
+        return acc % self.big_modulus
 
     @cached_property
     def q_hat_inv_mod_q_shoup(self) -> tuple[int, ...]:
@@ -88,6 +107,18 @@ class BaseConverter:
             [qh % p for qh in self.ibase.punctured_products]
             for p in self.obase.values
         ]
+
+    @cached_property
+    def alpha_q_mod_p(self) -> list[list[int]]:
+        """[alpha][p_j]: (alpha * Q) mod p_j for alpha in 0..k (HPS's
+        correction of the overshoot)."""
+        q = self.ibase.big_modulus
+        return [[(a * q) % p for p in self.obase.values] for a in range(len(self.ibase) + 1)]
+
+    @cached_property
+    def big_q_mod_p(self) -> list[int]:
+        q = self.ibase.big_modulus
+        return [q % p for p in self.obase.values]
 
 
 @dataclass(frozen=True)

@@ -2,7 +2,9 @@
 rotations.
 
 Port of the single-device path of ``tpu_fhe/eval/evaluator.py``, on the
-u64 plan and on the q32 plan of composite scaling:
+u64 plan and on the q32 plan of composite scaling, with the keyswitch's
+BFV and BGV branches (coefficient-form input and output, BGV's
+t-preserving moddown):
 
   * tensor products are elementwise NTT-domain modmuls over (L, N) planes
     (the single-word ``mul_mod_q32`` on a q32 context);
@@ -36,7 +38,7 @@ from ..ops.galois import apply_galois_ntt, conj_elt, galois_elt_from_step
 from ..ops.ks import key_inner_prod, key_inner_prod32, key_inner_prod_shoup
 from ..ops.ntt import forward_ntt, forward_ntt_sub_scale, inverse_ntt, inverse_ntt_scaled
 from ..scheme.ciphertext import Ciphertext, Plaintext
-from ..scheme.context import ContextLevel, FheContext, ModulusVec
+from ..scheme.context import ContextLevel, FheContext, ModulusVec, SchemeType
 from ..scheme.keys import GaloisKey, RelinKey
 
 
@@ -135,19 +137,27 @@ def _reduce(x: torch.Tensor, out: ModulusVec) -> torch.Tensor:
     return mm.barrett_reduce_u64(x, out.q, out.ratio_hi)
 
 
-def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor) -> torch.Tensor:
-    """Digit-decompose c2 ((size_Ql, N), NTT form) into (beta, size_QlP, N),
-    NTT form: iNTT with the per-digit partQlHatInv scale fused, fast-convert
-    each digit to the complement of QlP, NTT the converted limbs, and splice
-    the digit's own NTT limbs in unchanged."""
+def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor, *,
+          is_ntt: bool = True) -> torch.Tensor:
+    """Digit-decompose c2 ((size_Ql, N)) into (beta, size_QlP, N), NTT form:
+    iNTT with the per-digit partQlHatInv scale fused, fast-convert each
+    digit to the complement of QlP, NTT the converted limbs, and splice the
+    digit's own NTT limbs in unchanged.  With is_ntt=False (BFV's
+    coefficient-form input) the digits are scaled without a transform and
+    each digit's own limbs are forward-transformed instead."""
     ks = level.ks
-    scaled = inverse_ntt_scaled(c2, level.ntt, ks.part_qhatinv, ks.part_qhatinv_shoup)
+    if is_ntt:
+        scaled = inverse_ntt_scaled(c2, level.ntt, ks.part_qhatinv, ks.part_qhatinv_shoup)
+    else:
+        scaled = mm.mul_shoup(c2, ks.part_qhatinv, ks.part_qhatinv_shoup, level.mod.q)
     digits = []
     for dt in ks.digits:
         conv = _bconv(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.qhat_mod_p_diag, dt.comp_mod)
         conv_ntt = forward_ntt(conv, dt.comp_ntt)
-        digits.append(torch.cat(
-            [conv_ntt[: dt.start], c2[dt.start:dt.end], conv_ntt[dt.start:]]))
+        own = c2[dt.start:dt.end]
+        if not is_ntt:
+            own = forward_ntt(own, ctx.ntt_view(level.ntt, tuple(range(dt.start, dt.end))))
+        digits.append(torch.cat([conv_ntt[: dt.start], own, conv_ntt[dt.start:]]))
     return torch.stack(digits)
 
 
@@ -166,25 +176,45 @@ def key_inner_product(ctx: FheContext, level: ContextLevel, t_mod_up: torch.Tens
     return key_inner_prod(t, key.data, ks.qlp_key_rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi)
 
 
-def moddown_from_ntt(ctx: FheContext, level: ContextLevel, cx: torch.Tensor) -> torch.Tensor:
-    """(..., size_QlP, N) NTT -> (..., size_Ql, N) NTT: subtract the BEHZ
-    P->Ql conversion of the P part and scale by P^{-1}."""
+def moddown_from_ntt(ctx: FheContext, level: ContextLevel, cx: torch.Tensor, *,
+                     output_ntt: bool = True) -> torch.Tensor:
+    """(..., size_QlP, N) NTT -> (..., size_Ql, N): subtract the BEHZ
+    P->Ql conversion of the P part and scale by P^{-1}, fused into the
+    forward transform's landing.  With output_ntt=False (BFV) the Ql part
+    is inverse-transformed and the subtraction happens in the coefficient
+    domain instead.  On a BGV context the subtraction preserves t: delta =
+    t*U with U = [x * t^-1]_P, so delta = x (mod P) and 0 (mod t), and the
+    conversion's alpha*t*P overshoot divides to alpha*t = 0 (mod t)."""
     ks = level.ks
     size_Ql = level.size
-    scaled = inverse_ntt_scaled(cx[..., size_Ql:, :].contiguous(), ks.p_ntt,
-                                ks.p_hatinv, ks.p_hatinv_shoup)
+    p_part = cx[..., size_Ql:, :].contiguous()
+    pre = pre_shoup = None
+    if ctx.scheme == SchemeType.bgv:
+        scaled = inverse_ntt_scaled(p_part, ks.p_ntt, ks.tinv_p_hatinv, ks.tinv_p_hatinv_shoup)
+        pre, pre_shoup = ks.t_mod_q, ks.t_mod_q_shoup
+    else:
+        scaled = inverse_ntt_scaled(p_part, ks.p_ntt, ks.p_hatinv, ks.p_hatinv_shoup)
     delta = _bconv(scaled, ks.p_hat_mod_q, ks.p_hat_mod_q_diag, level.mod)
-    # (cx - NTT(delta)) * P^{-1}, fused into the forward transform
-    return forward_ntt_sub_scale(delta, cx[..., :size_Ql, :].contiguous(), level.ntt,
-                                 ks.big_pinv_mod_q, ks.big_pinv_mod_q_shoup)
+    if output_ntt:
+        # (cx - pre * NTT(delta)) * P^{-1}, fused into the forward transform
+        return forward_ntt_sub_scale(delta, cx[..., :size_Ql, :].contiguous(), level.ntt,
+                                     ks.big_pinv_mod_q, ks.big_pinv_mod_q_shoup,
+                                     pre=pre, pre_shoup=pre_shoup)
+    if pre is not None:
+        delta = mm.mul_shoup(delta, pre, pre_shoup, level.mod.q)
+    ql_coeff = inverse_ntt(cx[..., :size_Ql, :].contiguous(), level.ntt)
+    return mm.mul_shoup(mm.sub_mod(ql_coeff, delta, level.mod.q), ks.big_pinv_mod_q,
+                        ks.big_pinv_mod_q_shoup, level.mod.q)
 
 
-def keyswitch_core(ctx: FheContext, level: ContextLevel, c2: torch.Tensor,
-                   key: RelinKey) -> torch.Tensor:
-    """Full hybrid keyswitch of one polynomial: returns (2, size_Ql, N)."""
-    t_mod_up = modup(ctx, level, c2)
+def keyswitch_core(ctx: FheContext, level: ContextLevel, c2: torch.Tensor, key: RelinKey, *,
+                   input_ntt: bool = True, output_ntt: bool = True) -> torch.Tensor:
+    """Full hybrid keyswitch of one polynomial: returns (2, size_Ql, N), in
+    NTT form unless output_ntt is False; c2 in NTT form unless input_ntt
+    is False."""
+    t_mod_up = modup(ctx, level, c2, is_ntt=input_ntt)
     cx = key_inner_product(ctx, level, t_mod_up, key)
-    return moddown_from_ntt(ctx, level, cx)
+    return moddown_from_ntt(ctx, level, cx, output_ntt=output_ntt)
 
 
 def relinearize(ctx: FheContext, a: Ciphertext, rlk: RelinKey) -> Ciphertext:

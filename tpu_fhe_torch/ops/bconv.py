@@ -26,6 +26,10 @@ runs the 16 nonzero ones), a 96-bit reassembly and one word-fold landing.
 ``bconv_matmul32_plain`` sums canonical int64 products mod p;
 ``bconv_matmul32_digits_plain`` repeats the kernel's arithmetic.
 
+``bconv_behz``, ``bconv_hps``, ``frac_alpha`` and ``scale_and_round_hps``
+are BFV's conversions (BEHZ's and HPS's, the latter with its fixed-point
+rounding correction) built on ``bconv_matmul``; their glue is plain torch.
+
 Both digit forms take the table's side of the product, its digit matrix,
 built once per table on the host (``digit_matrix``, ``digit_matrix32``,
 kept beside the table by the context) in the order the kernel's MMA
@@ -387,3 +391,83 @@ def bconv_matmul32(scaled: torch.Tensor, qhat_mod_p: torch.Tensor, p: torch.Tens
     if scaled.device.type != "cpu":
         raise ValueError(f"bconv_matmul32: unsupported device {scaled.device}")
     return bconv_matmul32_plain(scaled, qhat_mod_p, p)
+
+
+# --------------------------------------------------------------------------
+# BEHZ and HPS conversions of BFV (tpu_fhe/ops/bconv.py:123-253)
+# --------------------------------------------------------------------------
+
+def bconv_behz(x, qhatinv, qhatinv_shoup, q, qhat_mod_p, p, p_ratio_lo, p_ratio_hi,
+               diag=None) -> torch.Tensor:
+    """Full BEHZ fast conversion ibase -> obase: scale each input limb by
+    qhat_i^-1, then bconv_matmul (`diag` the table's digit matrix)."""
+    s = ma.mul_mod_shoup(x, qhatinv, qhatinv_shoup, q).contiguous()
+    return bconv_matmul(s, qhat_mod_p, p, p_ratio_lo, p_ratio_hi, diag)
+
+
+def frac_alpha(s: torch.Tensor, frac_hi: torch.Tensor, frac_lo: torch.Tensor) -> torch.Tensor:
+    """alpha = round(sum_i s_i * frac_i), (..., 1, N) u64 patterns, for s
+    (..., k, N) residues and frac_i given as 128-bit fixed point: the (k, 1)
+    words of floor(frac_i * 2^128).  The result is floor((V + 2^127) /
+    2^128) mod 2^64 of the exact V = sum_i s_i * frac_i * 2^128, which is
+    what the reference's two-word accumulation computes
+    (tpu_fhe/ops/bconv.py:130-180).
+
+    The reference needs chunks of 7 terms because its 64x64 products of a
+    61-bit residue and a fraction's low word are up to 2^125 and its
+    accumulator 128 bits wide.  Here every partial product is of 31-bit
+    digits (below 2^62) and enters two digit columns as 31-bit halves
+    (modarith.dot_columns): a column grows by less than 2^33 per term, so
+    one pass holds any k below 2^28 exactly and needs no chunking."""
+    cols = ma.dot_columns(ma.digits(s, 2), ma.digits128(frac_hi, frac_lo))
+    cols[4] = cols[4] + (1 << 3)                     # + 2^127 = 2^(4*31 + 3)
+    return ma.bits_at(ma.carry_digits(cols), 128)
+
+
+def bconv_hps(x, qhatinv, qhatinv_shoup, q, qinv_hi, qinv_lo, qhat_mod_p, alpha_q_mod_p,
+              p, p_ratio_lo, p_ratio_hi, diag=None) -> torch.Tensor:
+    """Exact (centered) conversion ibase -> obase: the BEHZ conversion less
+    its overshoot alpha*Q, alpha = round(sum_i s_i / q_i) from the
+    fixed-point words of 1/q_i (qinv_hi, qinv_lo (k, 1)); alpha_q_mod_p
+    (k + 1, m) holds [v * Q]_{p_j} for v = 0 .. k."""
+    s = ma.mul_mod_shoup(x, qhatinv, qhatinv_shoup, q).contiguous()
+    y = bconv_matmul(s, qhat_mod_p, p, p_ratio_lo, p_ratio_hi, diag)
+    alpha = frac_alpha(s, qinv_hi, qinv_lo)                       # (..., 1, N) in [0, k]
+    corr = alpha_q_mod_p.index_select(0, alpha.reshape(-1))       # (B N, m)
+    corr = corr.reshape(alpha.shape[:-2] + (alpha.shape[-1], -1)).movedim(-1, -2)
+    return ma.sub_mod(y, corr, p)
+
+
+def sr_table(cross: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
+    """The table scale_and_round_hps converts with: [cross | diag(diag)]
+    (m, k + m) when k + m < 64, so that the diagonal term rides the same
+    conversion (K12's kernel), else cross (m, k) alone."""
+    m, k = cross.shape
+    if k + m <= MXU_MAX_K:
+        return torch.cat([cross, torch.diag(diag.reshape(-1))], dim=1)
+    return cross
+
+
+def scale_and_round_hps(x_a, x_b, table, diag, frac_hi, frac_lo, p, p_ratio_lo, p_ratio_hi,
+                        table_diag=None) -> torch.Tensor:
+    """out_j = [sum_i x_a[i]*cross[j,i] + x_b[j]*diag[j] + alpha]_{p_j},
+    alpha = round(sum_i x_a[i] * frac_i) -- the shared shape of HPS's
+    scale-and-round (tpu_fhe/ops/bconv.py:198-253).  x_a (..., k, N) the
+    scaled source limbs; x_b (..., m, N) the resident limbs of the output
+    base; `table` is sr_table(cross, diag) for cross (m, k) and diag (m, 1),
+    and `table_diag` its digit matrix (needed by K12 on a CUDA tensor when
+    the table has fewer than 64 columns); p (m, 1); frac over x_a.  When
+    k + m < 64 the conversion takes [x_a; x_b] through [cross | diag(diag)];
+    otherwise cross alone takes x_a and the diagonal term is one multiply
+    mod p.  Either way the sum is the same value mod p as the reference's
+    128-bit chunks."""
+    k, m = x_a.shape[-2], x_b.shape[-2]
+    if table.shape[1] == k + m:
+        out = bconv_matmul(torch.cat([x_a, x_b], dim=-2), table, p, p_ratio_lo, p_ratio_hi,
+                           table_diag)
+    else:
+        out = ma.add_mod(bconv_matmul(x_a.contiguous(), table, p, p_ratio_lo, p_ratio_hi,
+                                      table_diag),
+                         ma.mul_mod(x_b, diag, p, p_ratio_lo, p_ratio_hi), p)
+    alpha = ma.barrett_reduce_u64(frac_alpha(x_a, frac_hi, frac_lo), p, p_ratio_hi)
+    return ma.add_mod(out, alpha, p)

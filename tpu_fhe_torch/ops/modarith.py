@@ -45,13 +45,13 @@ def u64_tensor(vals, device) -> torch.Tensor:
     return torch.from_numpy(arr.view(np.int64).copy()).to(device)
 
 
-def _digits(x: torch.Tensor, nd: int = 3) -> list[torch.Tensor]:
-    """The low `nd` base-2^31 digits of the u64 bit pattern x (nd <= 3)."""
+def digits(x: torch.Tensor, nd: int = 3) -> list[torch.Tensor]:
+    """The low `nd` (<= 3) base-2^31 digits of the u64 bit pattern x."""
     out = [x & M31, (x >> 31) & M31, (x >> 62) & 3]
     return out[:nd]
 
 
-def _digits128(hi: torch.Tensor, lo: torch.Tensor) -> list[torch.Tensor]:
+def digits128(hi: torch.Tensor, lo: torch.Tensor) -> list[torch.Tensor]:
     """Base-2^31 digits of the 128-bit value hi*2^64 + lo (u64 patterns)."""
     return [
         lo & M31,
@@ -79,7 +79,7 @@ def _dmul(a: list, b: list) -> list:
     return out
 
 
-def _extract(d: list, s: int) -> torch.Tensor:
+def bits_at(d: list, s: int) -> torch.Tensor:
     """Bits [s, s + 64) of a digit vector, as a u64 pattern."""
     acc = None
     for i, x in enumerate(d):
@@ -106,7 +106,7 @@ def _inc(x):
 
 def mulhi(a, b):
     """High 64 bits of the 64x64 product."""
-    return _extract(_dmul(_digits(a), _digits(b)), 64)
+    return bits_at(_dmul(digits(a), digits(b)), 64)
 
 
 def csub(a, q):
@@ -141,14 +141,14 @@ def _barrett_digits(x: list, x_lo62, q, ratio_lo, ratio_hi):
     """x mod q for a digit vector x < 2^128: quotient estimate
     floor(x * floor(2^128/q) / 2^128) is floor(x/q) or one less, so the
     remainder estimate is in [0, 2q) and one conditional subtract lands it."""
-    est = _extract(_dmul(x, _digits128(ratio_hi, ratio_lo)), 128) & M62
+    est = bits_at(_dmul(x, digits128(ratio_hi, ratio_lo)), 128) & M62
     return csub((x_lo62 - _mullo62(est, q)) & M62, q)
 
 
 def barrett_reduce_u128(x_hi, x_lo, q, ratio_lo, ratio_hi):
     """Reduce the 128-bit (hi, lo) value mod q (q < 2^61) with the two-word
     Barrett ratio floor(2^128/q) = ratio_hi:ratio_lo."""
-    return _barrett_digits(_digits128(x_hi, x_lo), x_lo & M62, q, ratio_lo, ratio_hi)
+    return _barrett_digits(digits128(x_hi, x_lo), x_lo & M62, q, ratio_lo, ratio_hi)
 
 
 def barrett_reduce_u64(x, q, ratio_hi):
@@ -159,7 +159,7 @@ def barrett_reduce_u64(x, q, ratio_hi):
 
 def mul_mod(a, b, q, ratio_lo, ratio_hi):
     """a*b mod q for canonical a, b (< q < 2^61): full product + Barrett."""
-    x = _dmul(_digits(a, 2), _digits(b, 2))
+    x = _dmul(digits(a, 2), digits(b, 2))
     return _barrett_digits(x, _mullo62(a, b), q, ratio_lo, ratio_hi)
 
 
@@ -167,9 +167,56 @@ def shoup_of(w, q, ratio_lo, ratio_hi):
     """Exact floor(w * 2^64 / q) for 0 <= w < q: e = floor(w*r / 2^64) with
     r = floor(2^128/q) is the true word or one less; the remainder
     w*2^64 - e*q (in [0, 2q), computed mod 2^62) decides which."""
-    e = _extract(_dmul(_digits(w, 2), _digits128(ratio_hi, ratio_lo)), 64)
+    e = bits_at(_dmul(digits(w, 2), digits128(ratio_hi, ratio_lo)), 64)
     rem = (-_mullo62(e & M62, q)) & M62
     return torch.where(rem >= q, _inc(e), e)
+
+
+# --------------------------------------------------------------------------
+# 128-bit and wider integers as 31-bit digit columns
+# --------------------------------------------------------------------------
+
+def carry_digits(cols: list) -> list:
+    """Column sums (non-negative, each below 2^62) -> normalized 31-bit
+    digits of the same value, one more digit for the last carry."""
+    out, carry = [], 0
+    for c in cols:
+        c = c + carry
+        out.append(c & M31)
+        carry = c >> 31
+    return out + [carry]
+
+
+def mul_u64_full(a, b):
+    """The full 64x64 -> 128-bit product of u64 patterns as (hi, lo) u64
+    patterns (tpu_fhe/ops/modmath.py:25), from 31-bit digits."""
+    d = _dmul(digits(a), digits(b))
+    return bits_at(d, 64), bits_at(d, 0)
+
+
+def add_u128(a_hi, a_lo, b_hi, b_lo):
+    """(a_hi:a_lo) + (b_hi:b_lo) mod 2^128 as (hi, lo) u64 patterns
+    (tpu_fhe/ops/modmath.py:50), from 31-bit digits."""
+    d = carry_digits([x + y for x, y in zip(digits128(a_hi, a_lo), digits128(b_hi, b_lo))])
+    return bits_at(d, 64), bits_at(d, 0)
+
+
+def dot_columns(x_digits: list, w_digits: list, dim: int = -2, cols: list | None = None) -> list:
+    """Add sum_i x_i * w_i over axis `dim` to the column sums `cols` (a new
+    list when None), x and w given as 31-bit digit tensors that broadcast
+    against each other.  Each partial product is below 2^62 and enters its
+    two columns as 31-bit halves, so a column grows by less than 2^33 per
+    summed term: a sum of up to 2^28 terms stays below 2^62 with no
+    intermediate reduction.  Normalize with carry_digits."""
+    n = len(x_digits) + len(w_digits)
+    cols = list(cols) if cols is not None else []
+    cols += [0] * (n - len(cols))
+    for i, xd in enumerate(x_digits):
+        for j, wd in enumerate(w_digits):
+            p = xd * wd
+            cols[i + j] = cols[i + j] + (p & M31).sum(dim, keepdim=True)
+            cols[i + j + 1] = cols[i + j + 1] + (p >> 31).sum(dim, keepdim=True)
+    return cols
 
 
 # --------------------------------------------------------------------------

@@ -1,9 +1,12 @@
 """Ciphertext / plaintext containers.
 
-Port of ``tpu_fhe/scheme/ciphertext.py`` (CKKS metadata: chain index,
-scale, FLEXIBLEAUTO noise-scale degree), without pytree registration:
-``data`` is an int64 tensor of canonical residues and operations return
-new objects.  Ciphertexts are always in NTT form in this slice.
+Port of ``tpu_fhe/scheme/ciphertext.py`` (metadata: chain index, CKKS
+scale, FLEXIBLEAUTO noise-scale degree, BGV's correction factor, the form
+of the data and whether a public key encrypted it), without pytree
+registration: ``data`` is a tensor of canonical residues and operations
+return new objects.  CKKS and BGV ciphertexts are in NTT form, BFV's in
+coefficient form; a BFV/BGV plaintext is one (1, N) coefficient-form row
+mod t.
 ``stack_cts`` / ``unstack_cts`` gather same-metadata ciphertexts into one
 whose data has a leading batch axis, so that one torch op serves every
 channel of a DNN layer.
@@ -22,6 +25,9 @@ class Ciphertext:
     chain_index: int            # index into the context chain (1 = fresh)
     scale: float = 1.0          # CKKS scaling factor
     noise_scale_deg: int = 1    # FLEXIBLEAUTO degree of the scaling factor
+    correction_factor: int = 1  # BGV's multiplicative correction (mod t)
+    is_ntt_form: bool = True
+    is_asymmetric: bool = False  # encrypted with the public key
 
     @property
     def size(self) -> int:
@@ -32,13 +38,14 @@ class Ciphertext:
 
 
 def _meta(ct: Ciphertext) -> tuple:
-    return ct.chain_index, ct.scale, ct.noise_scale_deg
+    return (ct.chain_index, ct.scale, ct.noise_scale_deg, ct.correction_factor,
+            ct.is_ntt_form, ct.is_asymmetric)
 
 
 def stack_cts(cts: list[Ciphertext]) -> Ciphertext:
     """One ciphertext whose data is (B, size, L, N), from B ciphertexts of
-    equal metadata (chain index, scale, noise-scale degree), which the
-    batch shares; raises ValueError on mismatched metadata."""
+    equal metadata (every field but the data), which the batch shares;
+    raises ValueError on mismatched metadata."""
     first = cts[0]
     for c in cts[1:]:
         if _meta(c) != _meta(first):
@@ -55,7 +62,7 @@ def unstack_cts(ct: Ciphertext, batch: int) -> list[Ciphertext]:
 
 @dataclass(frozen=True)
 class Plaintext:
-    data: torch.Tensor          # (L, N) residues
+    data: torch.Tensor          # (L, N) residues, or (1, N) mod t (BFV/BGV)
     chain_index: int
     scale: float = 1.0
     noise_scale_deg: int = 1

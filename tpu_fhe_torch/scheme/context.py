@@ -1,6 +1,6 @@
 """FHE context: modulus chain and per-level tables on one device.
 
-Port of ``tpu_fhe/scheme/context.py`` for CKKS.  Chain index 0 is the key
+Port of ``tpu_fhe/scheme/context.py`` for CKKS, BFV and BGV.  Chain index 0 is the key
 level (all of Q and P), index 1 the first data level (all of Q), and each
 next level drops one data prime.  Every table is computed on the host with
 exact integers and stored once on ``ctx.device``: per-limb constants are
@@ -8,10 +8,14 @@ exact integers and stored once on ``ctx.device``: per-limb constants are
 map (ops/ntt.py).
 
 The word of every residue, table and Shoup companion follows the chain: a
-context whose primes all have at most 30 bits is a q32 context
+CKKS context whose primes all have at most 30 bits is a q32 context
 (``is_q32``, the reference's compact u32 regime) and keeps them as
 ``torch.int32`` with Shoup32 words floor(w * 2^32 / q); any other context
-keeps ``torch.int64`` with 64-bit Shoup words.
+keeps ``torch.int64`` with 64-bit Shoup words.  BFV and BGV run on the u64
+plan whatever their primes' size: the reference's BFV/BGV code has no q32
+path of its own, and on a chain of 30-bit primes the port computes the same
+residues in int64.  A BGV context's keyswitch tables also carry the
+t-preserving moddown's [t^-1 (P/p_j)^-1]_{p_j} and t mod q_i.
 """
 
 from __future__ import annotations
@@ -142,6 +146,12 @@ class KeySwitchTables:
     # keyswitch_ext / hoisting: [P]_{q_i} and its Shoup word, (size_Ql, 1)
     big_p_mod_q: torch.Tensor
     big_p_mod_q_shoup: torch.Tensor
+    # BGV's t-preserving moddown: [t^-1 * (P/p_j)^-1]_{p_j} (size_P, 1) and
+    # t mod q_i (size_Ql, 1), each with its Shoup word; None otherwise
+    tinv_p_hatinv: torch.Tensor | None = None
+    tinv_p_hatinv_shoup: torch.Tensor | None = None
+    t_mod_q: torch.Tensor | None = None
+    t_mod_q_shoup: torch.Tensor | None = None
 
 
 @dataclass(frozen=True)
@@ -167,8 +177,8 @@ class FheContext:
     """Owns the modulus chain and every table, on ``self.device``."""
 
     def __init__(self, params: EncryptionParameters, device=None):
-        if params.scheme != SchemeType.ckks:
-            raise ValueError("the port supports CKKS only")
+        if params.scheme not in (SchemeType.ckks, SchemeType.bfv, SchemeType.bgv):
+            raise ValueError(f"unsupported scheme {params.scheme}")
         self.device = resolve_device(device)
         self.params = params
         dev = self.device
@@ -254,6 +264,14 @@ class FheContext:
         big_p_mod_q, big_p_mod_q_shoup = _pair([big_p % q for q in base_Ql.values],
                                                base_Ql.values, dev, q32)
         p_hat_mod_q = table(np.array(p_to_q.q_hat_mod_p, dtype=np.uint64), dev)
+        bgv = {}
+        if self.scheme == SchemeType.bgv:
+            t = self.params.plain_modulus.value
+            tinv = [(numth.invert_mod(t % p, p) * hinv) % p
+                    for p, hinv in zip(p_base.values, p_base.q_hat_inv_mod_q)]
+            bgv["tinv_p_hatinv"], bgv["tinv_p_hatinv_shoup"] = _pair(tinv, p_base.values, dev, q32)
+            bgv["t_mod_q"], bgv["t_mod_q_shoup"] = _pair([t % q for q in base_Ql.values],
+                                                         base_Ql.values, dev, q32)
         return KeySwitchTables(
             alpha=size_P,
             beta=digits.beta,
@@ -273,14 +291,21 @@ class FheContext:
             big_pinv_mod_q_shoup=big_pinv_shoup,
             big_p_mod_q=big_p_mod_q,
             big_p_mod_q_shoup=big_p_mod_q_shoup,
+            **bgv,
         )
 
     # -- chain helpers --------------------------------------------------
+    @property
+    def scheme(self) -> SchemeType:
+        return self.params.scheme
+
     @cached_property
     def is_q32(self) -> bool:
-        """Every prime has at most 30 bits: residues fit one word, stored as
-        int32 (tpu_fhe/scheme/context.py:126-135)."""
-        return all(m.value.bit_length() <= Q32_BIT_MAX for m in self.key_modulus)
+        """A CKKS chain whose every prime has at most 30 bits: residues fit
+        one word, stored as int32 (tpu_fhe/scheme/context.py:126-135).
+        BFV and BGV keep the u64 plan."""
+        return self.scheme == SchemeType.ckks and all(
+            m.value.bit_length() <= Q32_BIT_MAX for m in self.key_modulus)
 
     @property
     def dtype(self) -> torch.dtype:

@@ -14,7 +14,10 @@ memory, and take K7/K9 (ops/ks.py).  The words are computed here, with
 the plain torch ``shoup_of`` (or ``shoup32_of`` on a q32 context) on the
 key's device.  On a q32 context every key, ciphertext and plaintext is
 int32, the counterpart of the reference's compact u32 storage
-(tpu_fhe/scheme/keys.py:165-170, :306, :392).
+(tpu_fhe/scheme/keys.py:165-170, :306, :392).  On a BGV context every
+error is scaled by t (b = -(a s + t e)), in keygen and in both encryptions,
+so that decryption mod t removes it (tpu_fhe/scheme/keys.py:91-97,
+:376-383).
 
 All sampling draws from the secret key's ``torch.Generator``.
 """
@@ -30,7 +33,7 @@ from ..ops.galois import apply_galois_ntt, galois_elt_from_step
 from ..ops.ntt import forward_ntt
 from . import prng
 from .ciphertext import Ciphertext, Plaintext
-from .context import FheContext
+from .context import FheContext, SchemeType
 
 
 @dataclass(frozen=True)
@@ -61,6 +64,18 @@ class GaloisKey:
             raise ValueError(
                 f"no Galois key for automorphism element {elt}; generate it "
                 f"with SecretKey.galois_key([...]) for the required steps") from None
+
+
+def _t_scaled_error(context: FheContext, gen: torch.Generator, level) -> torch.Tensor:
+    """A fresh error e at `level` in coefficient form, times t on a BGV
+    context."""
+    e = prng.sample_cbd_error(gen, level.mod.q, context.n)
+    if context.scheme != SchemeType.bgv:
+        return e
+    t = context.params.plain_modulus.value
+    t_mod_q = torch.tensor([[t % q] for q in level.base.values], dtype=e.dtype,
+                           device=e.device)
+    return level.mod.mul(e, t_mod_q)
 
 
 def _generator(seed: int | torch.Generator, device: torch.device) -> torch.Generator:
@@ -96,7 +111,7 @@ class SecretKey:
         kl = ctx.key_level
         q = kl.mod.q
         a = prng.sample_uniform(self.generator, q, ctx.n)
-        e = forward_ntt(prng.sample_cbd_error(self.generator, q, ctx.n), kl.ntt)
+        e = forward_ntt(_t_scaled_error(ctx, self.generator, kl), kl.ntt)
         b = mm.neg_mod(mm.add_mod(kl.mod.mul(a, secret_ntt), e, q), q)
         return torch.stack([b, a])
 
@@ -178,7 +193,7 @@ class SecretKey:
         level = ctx.level(pt.chain_index)
         q = level.mod.q
         a = prng.sample_uniform(self.generator, q, ctx.n)
-        e = forward_ntt(prng.sample_cbd_error(self.generator, q, ctx.n), level.ntt)
+        e = forward_ntt(_t_scaled_error(ctx, self.generator, level), level.ntt)
         b = mm.neg_mod(mm.add_mod(level.mod.mul(a, self.s_ntt[: level.size]), e, q), q)
         return Ciphertext(
             data=torch.stack([mm.add_mod(b, pt.data, q), a]),
@@ -186,6 +201,13 @@ class SecretKey:
             scale=pt.scale,
             noise_scale_deg=pt.noise_scale_deg,
         )
+
+    def encrypt_zero_symmetric(self, chain_index: int) -> Ciphertext:
+        """A fresh NTT-form encryption (b, a) of zero at the level."""
+        level = self.context.level(chain_index)
+        zero = torch.zeros((level.size, self.context.n), dtype=self.context.dtype,
+                           device=self.context.device)
+        return self.encrypt_symmetric(Plaintext(zero, chain_index=chain_index))
 
     def decrypt(self, ct: Ciphertext) -> Plaintext:
         """NTT-form decrypt: m = sum_i c_i s^i."""
@@ -205,8 +227,8 @@ def encrypt_asymmetric(context: FheContext, pk: PublicKey, pt: Plaintext,
     q, mul = level.mod.q, level.mod.mul
     n = context.n
     u = forward_ntt(prng.sample_ternary(gen, q, n), level.ntt)
-    e0 = forward_ntt(prng.sample_cbd_error(gen, q, n), level.ntt)
-    e1 = forward_ntt(prng.sample_cbd_error(gen, q, n), level.ntt)
+    e0 = forward_ntt(_t_scaled_error(context, gen, level), level.ntt)
+    e1 = forward_ntt(_t_scaled_error(context, gen, level), level.ntt)
     pk0, pk1 = pk.data[0, : level.size], pk.data[1, : level.size]
     c0 = mm.add_mod(mm.add_mod(mul(u, pk0), e0, q), pt.data, q)
     c1 = mm.add_mod(mul(u, pk1), e1, q)
@@ -215,4 +237,5 @@ def encrypt_asymmetric(context: FheContext, pk: PublicKey, pt: Plaintext,
         chain_index=pt.chain_index,
         scale=pt.scale,
         noise_scale_deg=pt.noise_scale_deg,
+        is_asymmetric=True,
     )

@@ -7,7 +7,9 @@ plaintexts (L, N)), and, on a q32 context, its compact state as bare
 ``uint32`` (switching keys and their Shoup32 words, ``tpu_fhe/scheme/keys.py``
 :165-192).  These helpers turn such arrays into the port's tensors of the
 same values in the context's word (int64, or int32 on a q32 context) on its
-device, and back.  They take plain numpy, so the port never imports the
+device, and back.  BFV/BGV state crosses the same way: coefficient-form
+ciphertexts with their correction factor and flags, mod-t plaintexts (one
+(1, N) row) and BGV keys, which have the CKKS shapes.  They take plain numpy, so the port never imports the
 JAX package.
 """
 
@@ -70,17 +72,24 @@ def galois_key_to_np(gk: GaloisKey) -> dict:
 
 
 def ciphertext_from_np(ctx: FheContext, data: np.ndarray, chain_index: int,
-                       scale: float = 1.0, noise_scale_deg: int = 1) -> Ciphertext:
-    """An NTT-form ciphertext (size, L, N) at `chain_index`."""
+                       scale: float = 1.0, noise_scale_deg: int = 1,
+                       correction_factor: int = 1, is_ntt_form: bool = True,
+                       is_asymmetric: bool = False) -> Ciphertext:
+    """A ciphertext (size, L, N) at `chain_index` with the given metadata
+    (NTT form unless is_ntt_form is False, as BFV's are)."""
     if data.shape[1] != ctx.level(chain_index).size:
         raise ValueError("ciphertext limb count does not match its chain index")
     return Ciphertext(word_tensor(ctx, data), chain_index=chain_index, scale=scale,
-                      noise_scale_deg=noise_scale_deg)
+                      noise_scale_deg=noise_scale_deg, correction_factor=correction_factor,
+                      is_ntt_form=is_ntt_form, is_asymmetric=is_asymmetric)
 
 
 def plaintext_from_np(ctx: FheContext, data: np.ndarray, chain_index: int,
                       scale: float = 1.0, is_ntt_form: bool = True) -> Plaintext:
-    if data.shape[0] != ctx.level(chain_index).size:
+    """An RNS plaintext (L, N) at `chain_index`, or, on a BFV/BGV context,
+    a mod-t plaintext (1, N) in coefficient form."""
+    mod_t = ctx.params.plain_modulus is not None and data.shape[0] == 1 and not is_ntt_form
+    if data.shape[0] != ctx.level(chain_index).size and not mod_t:
         raise ValueError("plaintext limb count does not match its chain index")
     return Plaintext(word_tensor(ctx, data), chain_index=chain_index, scale=scale,
                      is_ntt_form=is_ntt_form)
