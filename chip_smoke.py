@@ -43,7 +43,11 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     (2, 13), K3 on (2, 26), K12 13 -> 26 on 1 and 2 rows, K8 and K7 on t
     (2, 39) with keys of 2 digits; q32 52 + 26 limbs: K4 on 52, K5 scaled
     on (52) and (2, 26), K6 on (2, 52), K13 26 -> 52 on 1 and 2 rows, K10
-    and K9 on t (2, 78));
+    and K9 on t (2, 78)); then K7-K10 over a batch in one launch, the key's
+    bytes counted once in the bound: K8 and K7 on t (4, 2, 39) of the
+    flagship's tables, K10 and K9 on t (16, 2, 90) of the ResNet-20
+    inference's (phase 13's context), with the per-thread batch and
+    ptxas's registers and spills of each instantiation;
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
@@ -113,7 +117,10 @@ plaintexts freed before the second's are made):
     after), a two-iteration dense Meta-BTS (whose first iteration is the
     dense bootstrap) and the sparse bootstrap (64 slots) through the
     kernels, each bit-identical to the same through the plain versions and
-    decoding to more than 10 bits.
+    decoding to more than 10 bits; then two channels stacked into one
+    (2, 2, L, N) ciphertext and bootstrapped at once, bit-identical to the
+    same through the plain versions and to each channel's own bootstrap,
+    metadata included, with the launches of one channel's bootstrap.
 
 Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
 (tpu_fhe_torch/models/dnn.py, resnet20.py):
@@ -131,17 +138,25 @@ Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
     (examples/resnet20_infer.py --q32: N = 2^16, a 32 x 32 x 3 image,
     planes 16/32/64 from random_weights(default_rng(17)), 11 levels after
     the bootstrap, K = 512, r = 6, degree 88, 1024 slots), its stem and
-    layer 1's first block (resnet20_infer(layers=1, blocks=1): 144
-    bootstraps of one channel), through the entry points: the decrypted
-    32 x 32 x 16 activations within 1e-2 of the float64 shadow that applies
-    the same sign composite, with context, setup and keygen seconds, key
-    bytes, peak memory, ms per stage, the timer buckets, ms per channel
-    bootstrap, the launches of each kernel (counters set to 0 first) and a
-    profile of one channel's relu_composite; then every kernel of the
-    inference against its plain version at every distinct shape the
-    inference gave its wrapper, on the inference's own arguments and the
-    context's tables (recorded while it ran; the recorded calls must equal
-    the launches), each kernel's widest shape timed and bounded.
+    layer 1's first block (resnet20_infer(layers=1, blocks=1): 144 channel
+    bootstraps), through the entry points, the channels in chunks of the
+    DNN's channel batch (16 on an 80 GB card: one bootstrap, sign stage and
+    add per chunk): the decrypted 32 x 32 x 16 activations within 1e-2 of
+    the float64 shadow that applies the same sign composite, with context,
+    setup and keygen seconds, the channel batch and chunks, key bytes,
+    peak memory, ms per stage, the timer buckets (the Bootstrap bucket's
+    sections and ms per channel), the launches of each kernel (counters
+    set to 0 first) beside the per-channel inference's, ms per bootstrap
+    of one channel and of a chunk, and a profile of a chunk's
+    relu_composite (also per channel); a chunk of 4 channels'
+    relu_composite batched equal to the same channels one at a time, bit
+    for bit; the output through save_tensor_ct / load_tensor_ct in a
+    temporary directory, exact; then
+    the inference again with every distinct wrapper call held against its
+    plain version as it comes, on the inference's own arguments and the
+    context's tables, its output equal to the first's and its recorded
+    calls equal to the launches, and each kernel's widest shape timed and
+    bounded.
 
 Every bootstrap profile (phases 10 and 13) compares its count of each port
 kernel with the launches the wrappers counted in the same run; a window
@@ -193,6 +208,7 @@ import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -231,6 +247,10 @@ IMAD_PER_WIDE32 = 2                      # one 32x32 -> 64 product (IMAD.WIDE)
 # diagonals) four 64-bit groups of shifted adds (32), the 128-bit combine
 # (12), barrett128's six 64-bit products (24) and its carries (2).
 BCONV_FORMS = {4: (4, 23), 8: (8, 70)}   # word: digit planes, IMADs per output
+# K7-K10 over a batch (phase 3): u64 on the flagship's tables, q32 on the
+# ResNet-20 inference's (phase 13's context), each at the batch its path gives
+KS_BATCH = {"u64": 4, "q32": 16}
+BUILD_LOGS: dict = {}                    # nvcc's output by source (phase 2)
 
 
 def log(*a):
@@ -242,14 +262,16 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def cuda_ms(fn, reps: int, samples: int = 5, graph: bool = False) -> float:
+def cuda_ms(fn, reps: int, samples: int = 5, graph: bool = False, warm_up: bool = True) -> float:
     """Median over `samples` of the mean time of `reps` back-to-back calls
-    (CUDA events, after a warm-up call).  With `graph`, the reps are
-    captured once in a CUDA graph and replayed, so the time is the
-    device's alone and not the host's enqueue of each call."""
+    (CUDA events, after a warm-up call unless `warm_up` is False: the run
+    before already warmed it).  With `graph`, the reps are captured once in
+    a CUDA graph and replayed, so the time is the device's alone and not
+    the host's enqueue of each call."""
     import torch
 
-    fn()
+    if warm_up:
+        fn()
     torch.cuda.synchronize()
 
     def run():
@@ -288,6 +310,43 @@ def bconv_cost(word: int, batch: int, k: int, m: int, n: int = N) -> dict:
                 int8_ops=2 * batch * (planes * m) * (planes * k) * n)
 
 
+def ks_cost(shoup: bool, word: int, batch: int, beta: int, L: int, n: int = N) -> dict:
+    """Bytes and IMADs of one key inner product over a batch of `batch` digit
+    sets (beta, L, n): the digits and outputs of every set, the key's words
+    (two parts, with Shoup words four) once.  Per output word, with Shoup
+    words beta lazy Shoup multiplies (3 products each); without, beta
+    products into the wide accumulator and one landing (u64: 64x64 -> 128
+    products and Barrett's 6; q32: 32x32 -> 64 products and the word
+    fold's 7)."""
+    nbytes = word * n * (batch * beta * L + (4 if shoup else 2) * beta * L + batch * 2 * L)
+    if shoup:
+        per_mul = IMAD_PER_MUL32 if word == 4 else IMAD_PER_MUL64
+        imads = 3 * 2 * beta * L * n * per_mul
+    elif word == 4:
+        imads = 2 * L * n * (beta * IMAD_PER_WIDE32 + 7 * IMAD_PER_MUL32)
+    else:
+        imads = 2 * L * n * (2 * beta + 6) * IMAD_PER_MUL64
+    return dict(nbytes=nbytes, imads=batch * imads)
+
+
+def ks_ptxas(log_text: str) -> list[str]:
+    """ptxas's registers and spills of each K7-K10 instantiation (per-thread
+    batch BT), from nvcc's -Xptxas -v output of ks.cu."""
+    out, name = [], None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"(ks32_kernel|ks_shoup_kernel|ks_kernel)I(j|y)?Li(\d+)E", m.group(1))
+            name = None if k is None else (
+                f"{k.group(1)}<{dict(j='u32, ', y='u64, ').get(k.group(2), '')}BT={k.group(3)}>")
+        elif name and "spill" in line:
+            out.append(f"{name}: {line.strip()}")
+        elif name and "registers" in line:
+            out[-1] += "; " + line.split(":", 1)[-1].strip()
+            name = None
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -313,6 +372,7 @@ def main() -> int:
     # -- 2. build --------------------------------------------------------
     t0 = time.time()
     logs = _build.build_all()
+    BUILD_LOGS.update(logs)
     build_s = time.time() - t0
     log(f"[build] {len(logs)} sources compiled in {time.time() - t0:.1f} s "
         f"(0 = already built)")
@@ -1120,47 +1180,69 @@ def _arg_key(a):
     return None if a is None else type(a).__name__
 
 
-def recorded_calls(calls: dict):
+def recorded_calls(calls: dict, ck: Checker):
     """Within this block every call of the path's wrappers counts one in
     calls["count"], and the first call of each distinct wrapper and shapes
-    of its arguments keeps them in calls["args"] (the data arguments
-    cloned, the context's tables and keys by reference) for path_checks."""
+    of its arguments is held against its plain version at once, during the
+    run (hold_call): calls["args"] keeps its wrapper, kernel, arguments
+    (the data arguments as meta tensors, their shapes alone; the context's
+    tables and keys by reference) and keywords, and calls["held"] each
+    kernel's count of shapes held and its widest call with its data
+    cloned, for path_checks to time.  A run of batched ciphertexts gives
+    too many large distinct calls to keep a clone of each."""
     data = {name: lead for name, (_, lead) in path_wrappers().items()}
-    calls.update(count=0, args={})
+    calls.update(count=0, args={}, held={})
 
     def make(name, fn):
         def call(*args, **kw):
             key = (name, tuple(_arg_key(a) for a in args),
                    tuple((k, _arg_key(v)) for k, v in sorted(kw.items())))
-            if key not in calls["args"]:
-                calls["args"][key] = (name, fn, tuple(a.clone() if i < data[name] else a
-                                                      for i, a in enumerate(args)), kw)
             calls["count"] += 1
-            return fn(*args, **kw)
+            if key in calls["args"]:
+                return fn(*args, **kw)
+            kernel, got = hold_call(ck, name, fn, args, kw)
+            calls["args"][key] = (name, kernel, tuple(a.to("meta") if i < data[name] else a
+                                                      for i, a in enumerate(args)), kw)
+            shapes, widest = calls["held"].get(kernel, (0, None))
+            if widest is None or args[0].numel() > widest[2][0].numel():
+                widest = (name, fn, tuple(a.clone() if i < data[name] else a
+                                          for i, a in enumerate(args)), kw)
+            calls["held"][kernel] = (shapes + 1, widest)
+            return got
         return call
     return swapped_wrappers(make)
 
 
+def hold_call(ck: Checker, name: str, fn, args: tuple, kw: dict):
+    """One call of a path wrapper through its kernel against its plain
+    version on the same arguments, bit for bit; -> (the kernel it launched,
+    the kernel's result)."""
+    import torch
+
+    before = ck.launches()
+    got = fn(*args, **kw)
+    kernel = [k for k, v in ck.launches().items() if v != before[k]]
+    want = path_wrappers()[name][0](*args, **kw)
+    torch.cuda.synchronize()
+    if len(kernel) != 1:
+        fail(f"one call of {name} launched {kernel}")
+    if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
+        fail(f"{kernel[0]} ({name}) at {tuple(args[0].shape)} differs from its plain version")
+    return kernel[0], got
+
+
 def wrapper_cost(name: str, args: tuple, kw: dict) -> dict:
     """Bytes and operations of one call of a path wrapper on `args` (the
-    forms of ntt_cost and bconv_cost; the inner products as in
-    boot_path_checks)."""
+    forms of ntt_cost, bconv_cost and ks_cost)."""
     x = args[0]
     word, n = x.element_size(), x.shape[-1]
-    per_mul = IMAD_PER_MUL32 if word == 4 else IMAD_PER_MUL64
     if name.startswith("bconv"):
         k = x.shape[-2]
         return bconv_cost(word, x.numel() // (k * n), k, args[1].shape[0], n)
     if name.startswith("key_inner_prod"):
-        beta, L, _ = x.shape
-        if name == "key_inner_prod_shoup":
-            return dict(nbytes=word * n * (beta * L + 2 * 2 * beta * L + 2 * L),
-                        imads=3 * 2 * beta * L * n * per_mul)
-        nbytes = word * n * (beta * L + 2 * beta * L + 2 * L)
-        if word == 4:
-            return dict(nbytes=nbytes, imads=2 * L * n * (beta * IMAD_PER_WIDE32
-                                                          + 7 * IMAD_PER_MUL32))
-        return dict(nbytes=nbytes, imads=2 * L * n * (2 * beta + 6) * IMAD_PER_MUL64)
+        beta, L = x.shape[-3], x.shape[-2]
+        return ks_cost(name == "key_inner_prod_shoup", word, x.numel() // (beta * L * n), beta,
+                       L, n)
     L, rows = x.shape[-2], x.numel() // n
     if name == "forward_ntt_sub_scale":
         pre = kw.get("pre", args[5] if len(args) > 5 else None)
@@ -1178,47 +1260,32 @@ def wrapper_cost(name: str, args: tuple, kw: dict) -> dict:
 
 
 def path_checks(tag: str, what: str, ck: Checker, calls: dict, launches: dict) -> None:
-    """Every kernel of a run recorded by recorded_calls against its plain
-    version at every distinct shape the run gave its wrapper, on the run's
-    own arguments and tables: bit-exact, and each kernel's widest shape
-    also timed and bounded (Checker.check, listed under "checks").  The
-    recorded calls must equal the run's launches (`launches`), and every
-    kernel the run launched must have been held."""
-    import torch
-
+    """A run recorded by recorded_calls, whose every kernel was held
+    against its plain version at every distinct shape the run gave its
+    wrapper, on the run's own arguments and tables: the recorded calls
+    must equal the run's launches (`launches`), every kernel the run
+    launched must have been held, and each kernel's widest shape is timed
+    and bounded (Checker.check, listed under "checks")."""
     plain = {name: fn for name, (fn, _) in path_wrappers().items()}
     if calls["count"] != sum(launches.values()):
         fail(f"{tag} {what}: {calls['count']} wrapper calls recorded against "
              f"{sum(launches.values())} launches")
     t0 = time.time()
-    held: dict = {}
-    for name, fn, args, kw in calls["args"].values():
-        ck.reset()
-        got = fn(*args, **kw)
-        kernel = [k for k, v in ck.launches().items() if v]
-        want = plain[name](*args, **kw)
-        torch.cuda.synchronize()
-        if len(kernel) != 1:
-            fail(f"{tag} {what}: one call of {name} launched {kernel}")
-        if got.shape != want.shape or got.dtype != want.dtype or not torch.equal(got, want):
-            fail(f"{tag} {what}: {kernel[0]} ({name}) at {tuple(args[0].shape)} differs from "
-                 "its plain version")
-        held.setdefault(kernel[0], []).append((name, fn, args, kw))
+    held = calls["held"]
     missing = [k for k, v in launches.items() if v and k not in held]
     if missing:
         fail(f"{tag} {what}: launched but never held against the plain version: {missing}")
-    for kernel, entries in held.items():
-        name, fn, args, kw = max(entries, key=lambda e: e[2][0].numel())
+    for kernel, (shapes, (name, fn, args, kw)) in held.items():
         dims = ", ".join(f"2^{d.bit_length() - 1}" if i == args[0].dim() - 1 else str(d)
                          for i, d in enumerate(args[0].shape))
-        ck.check(kernel, f"({dims}), the widest of {len(entries)} shapes of the {what}",
+        ck.check(kernel, f"({dims}), the widest of {shapes} shapes of the {what}",
                  lambda: fn(*args, **kw), lambda: plain[name](*args, **kw),
                  **wrapper_cost(name, args, kw))
-        ck.report[kernel].setdefault("path_shapes", {})[f"{tag} {what}"] = len(entries)
+        ck.report[kernel].setdefault("path_shapes", {})[f"{tag} {what}"] = shapes
     log(f"[{tag} kernels] the {what}: every kernel at every distinct shape of its "
-        f"{calls['count']} wrapper calls == plain versions, bit for bit ("
-        + ", ".join(f"{k} {len(v)}" for k, v in held.items())
-        + f" shapes) in {time.time() - t0:.1f} s")
+        f"{calls['count']} wrapper calls == plain versions, bit for bit, held as they came ("
+        + ", ".join(f"{k} {v[0]}" for k, v in held.items())
+        + f" shapes; the widest timed in {time.time() - t0:.1f} s)")
 
 
 def _meta(c) -> tuple:
@@ -1627,14 +1694,16 @@ def boot_path_checks(tag: str, ck: Checker) -> None:
     the level's and P's scaled inverse NTTs, moddown's base conversion of
     P and its landing, and the inner products with a key of dnum digits,
     with Shoup words (the relin key; the Galois keys too on the q32 plan
-    when keygen picks them) and without (the u64 plan's Galois keys)."""
-    from tpu_fhe_torch.ops import bconv, ks, modarith as mm, ntt
+    when keygen picks them) and without (the u64 plan's Galois keys); then
+    the inner products over a batch of KS_BATCH digit sets in one launch,
+    u64 on these tables, q32 on the ResNet-20 inference's (phase 13), with
+    the per-thread batch and ptxas's report of each instantiation."""
+    from tpu_fhe_torch.ops import _build, bconv, ks, ntt
 
     t0 = time.time()
     ctx = boot_context(tag, BOOT_N, UNIFORM_SINE, BOOT_BUDGET, levels_after=1)
     q32 = ctx.is_q32
     n, word, sfx = BOOT_N, 4 if q32 else 8, f"2^{BOOT_N.bit_length() - 1}"
-    per_mul = IMAD_PER_MUL32 if q32 else IMAD_PER_MUL64
     suffix = "32" if q32 else ""
     level = ctx.level(1)
     kst = level.ks
@@ -1688,30 +1757,60 @@ def boot_path_checks(tag: str, ck: Checker) -> None:
     qlp, rows, kq = kst.qlp_mod, kst.qlp_key_rows, ctx.key_level.mod
     t = residues(qlp.q, beta)
     evk = residues(kq.q, dnum, 2)
+    shape = f"t ({beta}, {qlp_n}, {sfx}), key ({dnum}, 2, {kq.q.shape[0]}, {sfx})"
+    ks_checks(ck, kst, kq, t, evk, shape)
+    del x, xl, xp, xs, sub, s, s2, t
+    # K7-K10 over a batch: u64 on these tables, q32 on the ResNet-20
+    # inference's (phase 13's context), at the batch each path gives them
+    batch = KS_BATCH[tag]
+    if q32:
+        del evk, ctx
+        ctx = dnn_context("q32", RESNET_N, UNIFORM_SINE, (2, 2), RESNET_LEVELS_AFTER,
+                          special=15)
+        kst, kq = ctx.level(1).ks, ctx.key_level.mod
+        qlp_n, beta = kst.qlp_mod.q.shape[0], kst.beta
+        dnum = -(-ctx.params.size_Q // ctx.params.size_P)
+        evk = residues(kq.q, dnum, 2)
+    t = residues(kst.qlp_mod.q, batch, beta)
+    bt = _build.load("ks.cu").tfhe_ks_per_thread(batch)
+    log(f"[{tag} kernels] K7-K10 over a batch of {batch}: {bt} ciphertexts per thread, "
+        f"grid.z {-(-batch // bt)}, one launch; ptxas (ks.cu): "
+        + ("; ".join(ks_ptxas(BUILD_LOGS.get("ks.cu", ""))) or "not rebuilt in this run"))
+    ks_checks(ck, kst, kq, t, evk,
+              f"t ({batch}, {beta}, {qlp_n}, {sfx}), key ({dnum}, 2, {kq.q.shape[0]}, {sfx}), "
+              f"{'ResNet-20' if q32 else 'flagship'} chain index 1")
+    del t, evk, ctx
+    log(f"[{tag} kernels] the flagship's shapes checked in {time.time() - t0:.1f} s")
+
+
+def ks_checks(ck: Checker, kst, kq, t, evk, shape: str) -> None:
+    """The inner products with a key of dnum digits, with Shoup words (the
+    relin key; the Galois keys too on the q32 plan when keygen picks them)
+    and without (the u64 plan's Galois keys), on digits t (beta, QlP, N) or
+    a batch of them (B, beta, QlP, N) of a level's tables `kst`; the key's
+    bytes count once per launch."""
+    from tpu_fhe_torch.ops import ks, modarith as mm
+
+    q32 = t.element_size() == 4
+    suffix = "32" if q32 else ""
+    qlp, rows = kst.qlp_mod, kst.qlp_key_rows
+    beta, qlp_n, n = t.shape[-3], t.shape[-2], t.shape[-1]
+    batch = t.numel() // (beta * qlp_n * n)
+    word = t.element_size()
     evk_s = mm.shoup32_of(evk, kq.q) if q32 else mm.shoup_of(evk, kq.q, kq.ratio_lo,
                                                               kq.ratio_hi)
-    shape = f"t ({beta}, {qlp_n}, {sfx}), key ({dnum}, 2, {kq.q.shape[0]}, {sfx})"
     ck.check(f"key_inner_prod_shoup{suffix}", shape,
              lambda: ks.key_inner_prod_shoup(t, evk, evk_s, rows, qlp.q),
              lambda: ks.key_inner_prod_shoup_plain(t, evk, evk_s, rows, qlp.q),
-             word * n * (beta * qlp_n + 2 * 2 * beta * qlp_n + 2 * qlp_n),
-             3 * 2 * beta * qlp_n * n * per_mul)
-    # without Shoup words: per output word beta products into the wide
-    # accumulator and one landing (u64: 64x64 -> 128 products and Barrett's
-    # 6; q32: 32x32 -> 64 products and the word fold's 7)
+             **ks_cost(True, word, batch, beta, qlp_n, n))
     if q32:
         kip, kip_plain, kargs = ks.key_inner_prod32, ks.key_inner_prod32_plain, (rows, qlp.q,
                                                                                  qlp.fold)
-        imads = 2 * qlp_n * n * (beta * IMAD_PER_WIDE32 + 7 * IMAD_PER_MUL32)
     else:
         kip, kip_plain = ks.key_inner_prod, ks.key_inner_prod_plain
         kargs = (rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi)
-        imads = 2 * qlp_n * n * (2 * beta + 6) * IMAD_PER_MUL64
     ck.check(f"key_inner_prod{suffix}", shape, lambda: kip(t, evk, *kargs),
-             lambda: kip_plain(t, evk, *kargs),
-             word * n * (beta * qlp_n + 2 * beta * qlp_n + 2 * qlp_n), imads)
-    del x, xl, xp, xs, sub, s, s2, t, evk, evk_s, ctx
-    log(f"[{tag} kernels] the flagship's shapes checked in {time.time() - t0:.1f} s")
+             lambda: kip_plain(t, evk, *kargs), **ks_cost(False, word, batch, beta, qlp_n, n))
 
 
 def boot_input(tag: str, ctx, enc, sk, slots: int, seed: int = 0):
@@ -1801,7 +1900,8 @@ def port_group(key: str) -> str | None:
     return None
 
 
-def profile_window(tag: str, what: str, run, ms: float, ck: Checker, windows: int = 3) -> None:
+def profile_window(tag: str, what: str, run, ms: float, ck: Checker,
+                   windows: int = 3) -> tuple[float, float] | None:
     """A device-only profile of one `run()`: the window (CUDA events), the
     device's busy time and idle share, the port's kernels against the glue,
     and the kernels with the most device time.  The profile's count of
@@ -1810,7 +1910,8 @@ def profile_window(tag: str, what: str, run, ms: float, ck: Checker, windows: in
     `windows` in all; the last is printed as undercounted if it still falls
     short, and a count above the wrapper's fails.  Tracing slows the host's
     enqueue, so the window is longer than an untraced run (`ms`); the idle
-    share against `ms` is printed beside it."""
+    share against `ms` is printed beside it.  Returns (device busy, the
+    port's kernels) in ms, or None when the profiler saw no device time."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1847,7 +1948,7 @@ def profile_window(tag: str, what: str, run, ms: float, ck: Checker, windows: in
     if busy <= 0:
         log(f"[{tag} profile] {what}: the profiler saw no device time: idle share not "
             "measured")
-        return
+        return None
     log(f"[{tag} profile] {what}: window {window_ms:.3f} ms, device busy "
         f"{busy:.3f} ms ({100 * busy / window_ms:.1f}%), idle "
         f"{100 * (1 - busy / window_ms):.1f}% (against the untraced {ms:.3f} ms: "
@@ -1858,6 +1959,7 @@ def profile_window(tag: str, what: str, run, ms: float, ck: Checker, windows: in
     for e in sorted(device, key=lambda e: -e.self_device_time_total)[:14]:
         log(f"[{tag} profile]   {e.self_device_time_total / 1e3:.3f} ms  "
             f"{e.count} calls  {e.key[:90]}")
+    return busy, ours
 
 
 def flagship_phase(tag: str, ck: Checker, card: str) -> dict:
@@ -1988,8 +2090,52 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
                 f"{ct.chain_index} -> {out.chain_index}")
             if not bits >= BOOT11_MIN_BITS:
                 fail(f"{tag} {what}: precision {bits:.3f} bits < {BOOT11_MIN_BITS}")
+            if iterations == 1:
+                batched_bootstrap(tag, ck, boot, enc, sk, slots, (x, ct, out))
     torch.cuda.synchronize()
     log(f"[{tag} bootstrap] phase 11 in {time.time() - t0:.1f} s")
+
+
+def batched_bootstrap(tag: str, ck: Checker, boot, enc, sk, slots: int, first: tuple) -> None:
+    """Phase 11's batch: `first` (values, input, its bootstrap) and one more
+    channel stacked into one (2, 2, L, N) ciphertext and bootstrapped at
+    once, bit-identical, metadata included, to the same through the plain
+    versions and to the two channels' own bootstraps, each channel decoding
+    to more than BOOT11_MIN_BITS; the batch's launches beside one
+    channel's."""
+    import torch
+
+    from tpu_fhe_torch.boot.bootstrap import precision_bits
+    from tpu_fhe_torch.scheme.ciphertext import stack_cts, unstack_cts
+
+    x1, ct1, out1 = first
+    x2, ct2 = boot_input(tag, boot.ctx, enc, sk, slots, seed=slots + 7)
+    ck.reset()
+    out2 = boot.eval_bootstrap(ct2, slots)
+    one = ck.launches()
+    what = f"N=2^12 bootstrap, {slots} slots, a batch of 2"
+
+    def run():
+        return [boot.eval_bootstrap(stack_cts([ct1, ct2]), slots)]
+
+    ck.reset()
+    got = run()
+    launches = ck.launches()
+    plain_matches(tag, what, ck, run, got)
+    batch = got[0]
+    if tuple(batch.data.shape[:2]) != (2, 2):
+        fail(f"{tag} {what}: data {tuple(batch.data.shape)}")
+    for i, (x, out, c) in enumerate(zip((x1, x2), (out1, out2), unstack_cts(batch, 2))):
+        if not (torch.equal(c.data, out.data) and _meta(c) == _meta(out)):
+            fail(f"{tag} {what}: channel {i} differs from its own bootstrap")
+        bits = precision_bits(enc.decode(sk.decrypt(c), slots=slots).real, x)
+        if not bits >= BOOT11_MIN_BITS:
+            fail(f"{tag} {what}: channel {i} precision {bits:.3f} bits < {BOOT11_MIN_BITS}")
+    if launches != one:
+        fail(f"{tag} {what}: the batch launched {launches}, one channel {one}")
+    log(f"[{tag} bootstrap] {what}: == the two channels' own bootstraps, bit for bit, "
+        f"metadata included; the batch's launches equal one channel's: "
+        f"{ {k: v for k, v in launches.items() if v} }")
 
 
 
@@ -2005,6 +2151,12 @@ RESNET_N, RESNET_WIDTH, RESNET_PLANES = 1 << 16, 32, (16, 32, 64)
 RESNET_LEVELS_AFTER = 11                 # examples/resnet20_infer.py:104
 RESNET_SLOTS = RESNET_WIDTH ** 2
 RESNET_MAX_ERR = 1e-2
+RESNET_CHECK_BATCH = 4                   # channels of phase 13's batched-vs-per-channel check
+# the per-channel inference's launches, measured on one H100 (PERF.md's
+# kernel table), beside the batched inference's
+PER_CHANNEL_LAUNCHES = {"ntt_fwd32": 14294, "ntt_inv32": 43091, "ntt_fwd_landing32": 34944,
+                        "key_inner_prod32": 280, "key_inner_prod_shoup32": 16608,
+                        "bconv32": 22182}
 
 
 def dnn_context(plan: str, n: int, sine: tuple, budget: tuple, levels_after: int,
@@ -2134,6 +2286,7 @@ def resnet_phase(ck: Checker, card: str) -> dict:
     from tpu_fhe_torch.eval import auto
     from tpu_fhe_torch.models import resnet20 as rn
     from tpu_fhe_torch.models.dnn import DNN, TensorCT, relu_composite_clear
+    from tpu_fhe_torch.scheme.ciphertext import stack_cts
     from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
     from tpu_fhe_torch.scheme.keys import SecretKey
     from tpu_fhe_torch.utils import timer
@@ -2179,6 +2332,10 @@ def resnet_phase(ck: Checker, card: str) -> dict:
     weights = rn.random_weights(rng, planes=RESNET_PLANES)
     image = rng.uniform(-0.5, 0.5, (RESNET_WIDTH, RESNET_WIDTH, 3))
     x = model.enc_tensor(image, sk=sk)
+    batch = model.channel_batch(RESNET_PLANES[0])
+    log(f"[q32 resnet] channel batch {batch} (budget {model.batch_budget() / 2**30:.2f} GiB of "
+        f"the card's memory): {-(-RESNET_PLANES[0] // batch)} chunks of {batch} channels per "
+        "stage")
     events = []
 
     def event():
@@ -2186,16 +2343,17 @@ def resnet_phase(ck: Checker, card: str) -> dict:
         e.record()
         return e
 
-    calls: dict = {}
+    def infer():
+        return rn.resnet20_infer(x, model, boot, weights, log=lambda m: log(f"[q32 resnet] {m}"),
+                                 blocks=1, layers=1,
+                                 on_stage_done=lambda name, t: events.append((name, event())))
+
     torch.cuda.synchronize()
     timer.clear()
     ck.reset()
     events.append(("start", event()))
     t0 = time.time()
-    with recorded_calls(calls):
-        out = rn.resnet20_infer(x, model, boot, weights, log=lambda m: log(f"[q32 resnet] {m}"),
-                                blocks=1, layers=1,
-                                on_stage_done=lambda name, t: events.append((name, event())))
+    out = infer()
     torch.cuda.synchronize()
     wall = time.time() - t0
     launches = ck.launches()
@@ -2207,44 +2365,120 @@ def resnet_phase(ck: Checker, card: str) -> dict:
         fail(f"q32 resnet: decoded {acts.shape} (want {shadow.shape}) or non-finite values")
     err = float(np.max(np.abs(acts - shadow)))
     buckets = timer.accumulated()
-    boots = timer.counts().get("Bootstrap", 0)
+    sections = timer.counts().get("Bootstrap", 0)
     log(f"[q32 resnet] inference (stem + l1b0) {wall:.2f} s (host clock); ms per stage "
         f"(CUDA events): " + ", ".join(f"{b[0]} {a[1].elapsed_time(b[1]):.1f}"
                                        for a, b in zip(events, events[1:])))
     log(f"[q32 resnet] timer buckets (s, sections): " + ", ".join(
         f"{k} {v:.3f} ({timer.counts()[k]})" for k, v in sorted(buckets.items(),
                                                               key=lambda kv: -kv[1])))
-    log(f"[q32 resnet] {boots} channel bootstraps at {RESNET_SLOTS} slots, "
-        f"{1e3 * buckets.get('Bootstrap', 0.0) / max(boots, 1):.1f} ms each (Bootstrap bucket, "
-        f"synchronized host clock)")
+    log(f"[q32 resnet] Bootstrap bucket: {sections} sections of {batch} channels, "
+        f"{sections * batch} channel bootstraps at {RESNET_SLOTS} slots, "
+        f"{1e3 * buckets.get('Bootstrap', 0.0) / max(sections * batch, 1):.1f} ms per channel "
+        f"(synchronized host clock) on {card}")
     log(f"[q32 resnet] activations {acts.shape}: max err {err:.3e} against the float64 "
         f"sign-composite shadow (limit {RESNET_MAX_ERR}); max distance "
         f"{float(np.max(np.abs(acts - exact))):.3e} to the exact-ReLU shadow (not gated); "
         f"chain index {out.cts[0].chain_index}, peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-    log(f"[q32 resnet] launches in the inference: {launches}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
+    log("[q32 resnet] launches in the inference, batched (per channel): " + ", ".join(
+        f"{k} {v} ({PER_CHANNEL_LAUNCHES.get(k, 0)})" for k, v in launches.items()))
     if not err <= RESNET_MAX_ERR:
         fail(f"q32 resnet: max error {err} > {RESNET_MAX_ERR}")
     ck.require_launched("q32 resnet", launches, ("bconv",))
 
-    one = TensorCT(out.cts[:1], out.width, out.slotstr)
     ct = out.cts[0]
     ms = cuda_ms(lambda: boot.eval_bootstrap(ct, RESNET_SLOTS), reps=1, samples=3)
-    log(f"[q32 resnet] {ms:.3f} ms per channel bootstrap at {RESNET_SLOTS} slots (CUDA events, "
-        f"median of 3 after a warm-up) on {card}")
+    # a chunk's bootstraps and relu_composite once each (the inference ran
+    # them at these shapes just before: each takes seconds to tens of seconds)
+    stacked = stack_cts(out.cts[:batch])
+    ms_b = cuda_ms(lambda: boot.eval_bootstrap(stacked, RESNET_SLOTS), reps=1, samples=1,
+                   warm_up=False)
+    log(f"[q32 resnet] bootstrap at {RESNET_SLOTS} slots (CUDA events) on {card}: one channel "
+        f"{ms:.3f} ms (median of 3 after a warm-up); a chunk of {batch} {ms_b:.3f} ms, "
+        f"{ms_b / batch:.3f} ms per channel (one run)")
+    del stacked
 
-    def relu_one():
-        return model.relu_composite(one, boot)
+    chunk = TensorCT(out.cts[:batch], out.width, out.slotstr)
 
-    relu_ms = cuda_ms(relu_one, reps=1, samples=3)
-    log(f"[q32 resnet] {relu_ms:.3f} ms per relu_composite of one channel (three bootstraps; "
-        f"CUDA events, median of 3) on {card}")
-    profile_window("q32 resnet", "relu_composite of one channel", relu_one, relu_ms, ck)
+    def relu_chunk():
+        return model.relu_composite(chunk, boot)
+
+    relu_ms = cuda_ms(relu_chunk, reps=1, samples=1, warm_up=False)
+    log(f"[q32 resnet] relu_composite of a chunk of {batch} channels (three bootstraps): "
+        f"{relu_ms:.3f} ms, {relu_ms / batch:.3f} ms per channel (CUDA events, one run) "
+        f"on {card}")
+    prof = profile_window("q32 resnet", f"relu_composite of a chunk of {batch} channels",
+                          relu_chunk, relu_ms, ck)
+    if prof is not None:
+        busy, ours = prof
+        log(f"[q32 resnet profile] per channel of the chunk: device busy {busy / batch:.3f} ms, "
+            f"the port's kernels {ours / batch:.3f} ms, glue {(busy - ours) / batch:.3f} ms")
     log(f"[q32 resnet] peak device memory after the inference "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}")
-    # after the profile: each timed check captures and replays a CUDA graph
+
+    # a chunk's relu_composite batched == the same channels one at a time
+    few = TensorCT(out.cts[:RESNET_CHECK_BATCH], out.width, out.slotstr)
+    t0 = time.time()
+    model.forced_batch = RESNET_CHECK_BATCH
+    batched = model.relu_composite(few, boot).cts
+    model.forced_batch = 1
+    one_by_one = model.relu_composite(few, boot).cts
+    model.forced_batch = None
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.data, b.data) and _meta(a) == _meta(b)
+               for a, b in zip(batched, one_by_one)):
+        fail(f"q32 resnet: relu_composite of a chunk of {RESNET_CHECK_BATCH} differs from its "
+             "channels one at a time")
+    log(f"[q32 resnet] relu_composite of a chunk of {RESNET_CHECK_BATCH} channels "
+        f"(channel_batch={RESNET_CHECK_BATCH}) == the same channels one at a time "
+        f"(channel_batch=1), bit for bit, metadata included ({time.time() - t0:.1f} s)")
+    del few, batched, one_by_one, chunk
+    checkpoint_round_trip(ctx, out)
+
+    # the inference again, every distinct wrapper call held against its
+    # plain version as it comes (after the profiles: each timed check
+    # captures and replays a CUDA graph)
+    calls: dict = {}
+    ck.reset()
+    t0 = time.time()
+    with recorded_calls(calls, ck):
+        again = infer()
+    torch.cuda.synchronize()
+    if not all(torch.equal(a.data, b.data) and _meta(a) == _meta(b)
+               for a, b in zip(again.cts, out.cts)):
+        fail("q32 resnet: a second inference differs from the first")
+    log(f"[q32 resnet] a second inference, each distinct wrapper call held against its plain "
+        f"version as it came, == the first, bit for bit ({time.time() - t0:.1f} s)")
+    del again
     path_checks("q32", "ResNet-20 inference", ck, calls, launches)
     return launches
+
+
+def checkpoint_round_trip(ctx, out) -> None:
+    """The inference's output through save_tensor_ct and load_tensor_ct in
+    a temporary directory: every channel equal, metadata included; the
+    files' MB and the seconds of each way."""
+    import tempfile
+
+    import torch
+
+    from tpu_fhe_torch.models import resnet20 as rn
+
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.time()
+        rn.save_tensor_ct(out, d, stage="l1b0")
+        t1 = time.time()
+        back, meta = rn.load_tensor_ct(ctx, d)
+        torch.cuda.synchronize()
+        t2 = time.time()
+        mb = sum(p.stat().st_size for p in Path(d).iterdir()) / 1e6
+    if (back.width, back.slotstr, meta["stage"]) != (out.width, out.slotstr, "l1b0") or \
+            not all(torch.equal(a.data, b.data) and _meta(a) == _meta(b)
+                    for a, b in zip(back.cts, out.cts)) or back.num_ch != out.num_ch:
+        fail("q32 resnet: the checkpoint round trip changed the tensor")
+    log(f"[q32 resnet] checkpoint of the output ({out.num_ch} channels): {mb:.1f} MB, saved in "
+        f"{t1 - t0:.2f} s, loaded in {t2 - t1:.2f} s, every channel equal, metadata included")
 
 
 # --------------------------------------------------------------------------
@@ -2478,13 +2712,13 @@ def bfv_bgv_phase(ck: Checker, card: str) -> dict:
     torch.cuda.synchronize()
     ck.reset()
     t0 = time.time()
-    with recorded_calls(calls):
+    with recorded_calls(calls, ck):
         bfv_bgv_run(forms, BFV_N, True)
     torch.cuda.synchronize()
     launches = ck.launches()
     log(f"[u64 bfv/bgv] one pass of the traffic of {len(forms)} contexts in "
-        f"{time.time() - t0:.1f} s (host clock, decryption checks and noise budgets "
-        f"included); launches: {launches}")
+        f"{time.time() - t0:.1f} s (host clock, decryption checks, noise budgets and the "
+        f"plain-version checks of each distinct call included); launches: {launches}")
     ck.require_launched("u64 BFV/BGV", launches, ("bconv",))
 
     # ms per op, after the pass (every operand and table exists)

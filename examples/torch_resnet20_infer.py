@@ -10,6 +10,13 @@ device unless --cpu is given.
 
 Full scale (GPU):      python examples/torch_resnet20_infer.py --q32
 Doll-scale demo (CPU): python examples/torch_resnet20_infer.py --cpu --demo
+Resumable:             ... --ckpt DIR [--budget SECONDS]
+
+Channels run in chunks of the DNN's channel batch (its memory rule by
+default; --channel-batch 1 runs them one at a time).  With --ckpt the
+tensor is saved after every stage and a rerun resumes after the last saved
+stage; --budget checkpoints and exits with code 3 once the inference has
+taken that many seconds (run again to continue).
 
 The demo shrinks ring, width and planes but runs the identical pipeline
 (conv, bn, ReluComposite with bootstraps, residual, downsample, pool and
@@ -25,6 +32,7 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 import argparse
+import sys
 import time
 
 import numpy as np
@@ -47,7 +55,18 @@ def main():
                     help="C2S,S2C level budget (default 2,2)")
     ap.add_argument("--q32", action="store_true",
                     help="composite-scaling regime (30-bit limb pairs, working scale 2^58)")
+    ap.add_argument("--channel-batch", type=int, default=0,
+                    help="channels per chunk (default: the DNN's memory rule; 1: one at a time)")
+    ap.add_argument("--ckpt", type=str, default="",
+                    help="checkpoint dir: save the tensor after every stage and resume from "
+                         "the last one on restart")
+    ap.add_argument("--budget", type=float, default=0.0,
+                    help="wall-clock seconds: checkpoint and exit(3) when exceeded (run again "
+                         "to continue)")
     args = ap.parse_args()
+    if args.budget and not args.ckpt:
+        ap.error("--budget requires --ckpt (otherwise completed work would be lost at the "
+                 "budget exit)")
 
     from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper, gen_sine_coefficients
     from tpu_fhe_torch.core.modulus import CoeffModulus
@@ -106,7 +125,7 @@ def main():
           f"({time.time() - t0:.1f}s)")
 
     sf, _ = auto.scaling_factors(ctx)
-    model = DNN(ctx, enc, scale=sf[0])
+    model = DNN(ctx, enc, scale=sf[0], channel_batch=args.channel_batch or None)
     rn.prepare_resnet20(model, sk, width=width, layers=args.layers)
 
     slots = width * width
@@ -124,12 +143,38 @@ def main():
     image = rn.load_cifar_image(args.image, args.image_index) if args.image else \
         rng.uniform(-0.5, 0.5, (width, width, 3))
 
-    print("[inference] start")
+    print(f"[inference] start, {model.channel_batch(planes[0])} channels per chunk")
     t1 = time.time()
     timer.clear()
-    x = model.enc_tensor(image, sk=sk)
-    out = rn.resnet20_infer(x, model, boot, weights, blocks=blocks, layers=args.layers,
-                            log=lambda m: print(f"  {m} ({time.time() - t1:.0f}s)"))
+    start_after = ""
+    if args.ckpt and _os.path.exists(f"{args.ckpt}/meta.json"):
+        x, meta = rn.load_tensor_ct(ctx, args.ckpt)
+        start_after = meta["stage"]
+        print(f"[resume] from the checkpoint after stage {start_after!r}")
+    else:
+        x = model.enc_tensor(image, sk=sk)
+
+    class _Budget(Exception):
+        pass
+
+    def stage_done(name, t):
+        if args.ckpt:
+            ts = time.time()
+            rn.save_tensor_ct(t, args.ckpt, stage=name)
+            print(f"  [ckpt] saved after {name} ({time.time() - ts:.1f}s)")
+        if args.budget and time.time() - t1 > args.budget and name != "pool":
+            # pool is the last stage: let the logits print
+            raise _Budget(name)
+
+    try:
+        out = rn.resnet20_infer(x, model, boot, weights, blocks=blocks, layers=args.layers,
+                                log=lambda m: print(f"  {m} ({time.time() - t1:.0f}s)"),
+                                start_after=start_after, on_stage_done=stage_done)
+    except _Budget as e:
+        print(f"[budget] exceeded after stage {e} ({time.time() - t1:.0f}s); checkpointed, "
+              "run again to continue")
+        timer.print_accumulated()
+        sys.exit(3)
     wall = time.time() - t1
     if args.layers < 3:
         acts = model.dec_tensor(out, sk)

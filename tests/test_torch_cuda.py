@@ -290,6 +290,37 @@ def test_q32_inner_product_without_shoup_equals_plain(ctx32):
     assert torch.equal(ks.key_inner_prod32(*args), ks.key_inner_prod32_plain(*args))
 
 
+@pytest.mark.parametrize("batch", [1, 2, 3, 5, 16])
+def test_batched_inner_products_equal_plain(ctx, ctx32, batch):
+    """K7-K10 over a batch (B, beta, QlP, N) of digit sets sharing a key:
+    one launch, equal to the plain version and to the one-set kernel on
+    each set (per-thread batches of 1, 2 and 4, a ragged last one, grid.z
+    of 4)."""
+    for c, res in ((ctx, _res), (ctx32, _res32)):
+        kst, kq = c.level(1).ks, c.key_level.mod
+        qlp, rows = kst.qlp_mod, kst.qlp_key_rows
+        dnum = -(-c.params.size_Q // c.params.size_P)
+        evk = res(c, kq.q, dnum, 2)
+        if c.is_q32:
+            evk_s = mm.shoup32_of(evk, kq.q)
+            no_shoup = (ks.key_inner_prod32, ks.key_inner_prod32_plain, (rows, qlp.q, qlp.fold))
+        else:
+            evk_s = mm.shoup_of(evk, kq.q, kq.ratio_lo, kq.ratio_hi)
+            no_shoup = (ks.key_inner_prod, ks.key_inner_prod_plain,
+                         (rows, qlp.q, qlp.ratio_lo, qlp.ratio_hi))
+        t = res(c, qlp.q, batch, kst.beta, seed=batch)
+        forms = [(ks.key_inner_prod_shoup, ks.key_inner_prod_shoup_plain,
+                  (evk, evk_s, rows, qlp.q)), (no_shoup[0], no_shoup[1], (evk,) + no_shoup[2])]
+        for kernel, plain, args in forms:
+            before = sum(k.launches for k in (ks.KS, ks.KS32, ks.KS_SHOUP, ks.KS_SHOUP32))
+            got = kernel(t, *args)
+            after = sum(k.launches for k in (ks.KS, ks.KS32, ks.KS_SHOUP, ks.KS_SHOUP32))
+            assert after - before == 1
+            assert got.shape == (batch, 2) + t.shape[-2:]
+            assert torch.equal(got, plain(t, *args))
+            assert torch.equal(got, torch.stack([kernel(t[b], *args) for b in range(batch)]))
+
+
 def test_q32_rotations_equal_cpu(ctx32):
     _rotations_equal_cpu(ctx32, np.uint32)
 

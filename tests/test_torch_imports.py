@@ -5,7 +5,8 @@ eval/hoisting.py, the evaluation layer of eval/auto.py, eval/chebyshev.py
 and eval/jit.py, the bootstrap of boot/boot_math.py and boot/bootstrap.py
 with the encoder's QlP forms, and the PPML layers and ResNet-20 of
 models/dnn.py, models/resnet20.py and utils/timer.py, and BFV and BGV with
-the batch encoder) run with both blocked."""
+the batch encoder, and the serializer of utils/serialize.py with a
+channel batch through the evaluator) run with both blocked."""
 
 import re
 import subprocess
@@ -285,3 +286,40 @@ def test_bfv_bgv_run_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_serialization_and_batching_run_with_jax_blocked():
+    """examples/torch_serialization.py on the CPU, then a stacked batch of
+    two ciphertexts through a multiply, relinearize and rescale equal to
+    each one's own, with jax and tpu_fhe blocked."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "sys.argv = ['torch_serialization.py', '--cpu', '--n', '1024']\n"
+        "runpy.run_path('examples/torch_serialization.py', run_name='__main__')\n"
+        "import numpy as np, torch\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.eval import evaluator as ev\n"
+        "from tpu_fhe_torch.scheme.ciphertext import stack_cts, unstack_cts\n"
+        "from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "n = 1024\n"
+        "ctx = FheContext(EncryptionParameters(SchemeType.ckks, n,\n"
+        "    tuple(CoeffModulus.create(n, [60, 40, 40, 60])), special_modulus_size=1,\n"
+        "    allow_insecure=True), device='cpu')\n"
+        "sk, enc = SecretKey(ctx, seed=1), CkksEncoder(ctx)\n"
+        "rlk = sk.relin_key()\n"
+        "cts = [sk.encrypt_symmetric(enc.encode(np.full(n // 2, v), 2.0 ** 40))\n"
+        "       for v in (.5, .25)]\n"
+        "def op(c):\n"
+        "    return ev.rescale_to_next(ctx, ev.relinearize(ctx, ev.square(ctx, c), rlk))\n"
+        "for a, b in zip(unstack_cts(op(stack_cts(cts)), 2), map(op, cts)):\n"
+        "    assert torch.equal(a.data, b.data) and a.chain_index == b.chain_index\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("OK")

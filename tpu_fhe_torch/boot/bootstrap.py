@@ -22,8 +22,10 @@ base conversions and inner products are the port's kernels and the glue
 is plain torch.  The reference's stage and glue jits, its per-stage
 completion barriers, its q32 compaction wrappers and its ``TPU_FHE_BOOT_*``
 switches have no counterpart here: they served a TPU's compiler and
-memory, not the computation.  The batched path (4-D ciphertexts) is not
-ported.
+memory, not the computation.  Every stage takes a batch of ciphertexts
+stacked with ``stack_cts`` ((B, 2, L, N)) as well as one, so one launch of
+each kernel serves the batch; Meta-BTS over a batch runs the channels one at
+a time and restacks them, as the reference does.
 
 The sine's Chebyshev coefficients are generated, not tabulated: the
 reference tables are the Chebyshev interpolation of
@@ -41,7 +43,7 @@ import torch
 from ..eval import auto, chebyshev as cheb, evaluator as ev, hoisting as hst
 from ..ops import modarith as mm
 from ..ops.galois import apply_galois_ntt, conj_elt, galois_elt_from_step
-from ..scheme.ciphertext import Ciphertext, Plaintext
+from ..scheme.ciphertext import Ciphertext, Plaintext, stack_cts, unstack_cts
 from ..scheme.context import FheContext
 from ..scheme.keys import GaloisKey, RelinKey, SecretKey
 from . import boot_math as bm
@@ -443,7 +445,7 @@ class CkksBootstrapper:
 
         level = ctx.level(result.chain_index)
         q, q_ext = level.mod.q, level.ks.qlp_mod.q
-        first = None    # c0 of the sum at Ql, as a (Ql, N) tensor
+        first = None    # c0 of the sum at Ql, as a (..., Ql, N) tensor
         outer = None
         for i in range(b):
             G = g * i
@@ -453,23 +455,25 @@ class CkksBootstrapper:
                     inner = hst.eval_add_ext(
                         ctx, inner, hst.eval_mult_ext(ctx, fast_rot[j], A_level[G + j]))
             if i == 0:
-                first = hst.keyswitch_down_first(ctx, inner).data[0]
+                first = hst.keyswitch_down_first(ctx, inner).data[..., 0, :, :]
                 outer = hst.reset_poly_ext(ctx, inner, 0)
             elif rot_out[i] != 0:
                 elt = galois_elt_from_step(rot_out[i], n)
                 inner_dn = hst.keyswitch_down(ctx, inner)
-                first = mm.add_mod(first, apply_galois_ntt(inner_dn.data[0], elt, n), q)
+                first = mm.add_mod(first, apply_galois_ntt(inner_dn.data[..., 0, :, :], elt, n),
+                                   q)
                 inner_digits = hst.fast_rotation_precompute(ctx, inner_dn)
                 outer = hst.eval_add_ext(
                     ctx, outer,
                     hst.fast_rotation_ext(ctx, inner_dn, inner_digits, elt, keys[elt], False))
             else:
-                first = mm.add_mod(first, hst.keyswitch_down_first(ctx, inner).data[0], q)
+                down = hst.keyswitch_down_first(ctx, inner).data[..., 0, :, :]
+                first = mm.add_mod(first, down, q)
                 # only c1 is added at the extended basis
-                outer = outer.with_data(torch.stack(
-                    [outer.data[0], mm.add_mod(outer.data[1], inner.data[1], q_ext)]))
+                c1 = mm.add_mod(outer.data[..., 1, :, :], inner.data[..., 1, :, :], q_ext)
+                outer = outer.with_data(torch.stack([outer.data[..., 0, :, :], c1], dim=-3))
         res = hst.keyswitch_down(ctx, outer)
-        return res.with_data(torch.stack([mm.add_mod(res.data[0], first, q), res.data[1]]))
+        return ev.with_c0(res, mm.add_mod(res.data[..., 0, :, :], first, q))
 
     def c2s_stage_plans(self, slots: int) -> list[tuple]:
         """The rotation plans of the hoisted C2S levels, in execution order:
@@ -649,11 +653,17 @@ class CkksBootstrapper:
     def eval_bootstrap(self, ct: Ciphertext, slots: int = 0, num_iterations: int = 1,
                        precision: int = 0) -> Ciphertext:
         """EvalBootstrap: the dense path (slots = N/2), the sparse path, and
-        with num_iterations > 1 Meta-BTS.  Returns `ct` itself when the
-        bootstrap would leave no more limbs than it had."""
+        with num_iterations > 1 Meta-BTS, of one ciphertext or of a batch
+        stacked with stack_cts.  Returns `ct` itself when the bootstrap would
+        leave no more limbs than it had (a batch shares its level, so the
+        whole batch or none)."""
         ctx = self.ctx
         slots = slots or ctx.n // 2
         init_size_q = ctx.level(ct.chain_index).size
+        if num_iterations > 1 and ct.data.dim() == 4:
+            # Meta-BTS runs the channels one at a time and restacks them
+            return stack_cts([self.eval_bootstrap(c, slots, num_iterations, precision)
+                              for c in unstack_cts(ct, ct.data.shape[0])])
         if num_iterations > 1:
             return self._meta_bootstrap(ct, slots, num_iterations, precision, init_size_q)
 

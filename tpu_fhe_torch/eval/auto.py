@@ -12,7 +12,9 @@ chain index l * composite_degree + 1.  Scalars are lifted on the host with
 exact Python integers and go to the device as (k, 1) columns in the
 context's word; the data work is ``ModulusVec.mul``, ``modarith.add_mod`` /
 ``sub_mod`` and the evaluator's ops, so on a CUDA context the NTTs, base
-conversions and inner products run as the port's kernels.
+conversions and inner products run as the port's kernels.  A ciphertext
+may carry leading batch axes ((..., size, L, N)); the scalar columns
+broadcast over them, and every branch reads metadata, which a batch shares.
 """
 
 from __future__ import annotations
@@ -159,8 +161,8 @@ def mult_const(ctx: FheContext, ct: Ciphertext, operand: float) -> Ciphertext:
 
 def _c0_op(ctx: FheContext, ct: Ciphertext, operand: float, op) -> Ciphertext:
     q = ctx.level(ct.chain_index).mod.q
-    c0 = op(ct.data[0], _scalar_col(ctx, _crt_lift_addsub(ctx, ct, operand)), q)
-    return ct.with_data(torch.cat([c0[None], ct.data[1:]]))
+    c0 = op(ct.data[..., 0, :, :], _scalar_col(ctx, _crt_lift_addsub(ctx, ct, operand)), q)
+    return ev.with_c0(ct, c0)
 
 
 def add_const(ctx: FheContext, ct: Ciphertext, operand: float) -> Ciphertext:
@@ -276,7 +278,7 @@ def eval_mult_plain_auto(ctx: FheContext, ct: Ciphertext, pt: Plaintext) -> Ciph
     if ct2.noise_scale_deg == 2:
         ct2 = mod_reduce(ctx, ct2, 1)
         morph = mod_reduce(ctx, morph, 1)
-    data = ctx.level(ct2.chain_index).mod.mul(ct2.data, morph.data[0][None])
+    data = ctx.level(ct2.chain_index).mod.mul(ct2.data, morph.data[..., 0:1, :, :])
     return replace(ct2, data=data, scale=ct2.scale * morph.scale,
                    noise_scale_deg=ct2.noise_scale_deg + morph.noise_scale_deg)
 
@@ -298,7 +300,7 @@ def raise_mod(ctx: FheContext, ct: Ciphertext) -> Ciphertext:
         raise ValueError("composite RaiseMod expects the ciphertext at the anchor level "
                          f"(size {d}), got size {level.size}")
     qs = ctx.q_values[:d]
-    anchor = ct.data if level.size == d else ct.data[:, :d].contiguous()
+    anchor = ct.data if level.size == d else ct.data[..., :d, :].contiguous()
     coeff = inverse_ntt(anchor, ctx.ntt_view(level.ntt, tuple(range(d))))
     cur = ev._garner_compose_u64(level, coeff, 0, d, qs)             # [0, Qa)
     qa = 1

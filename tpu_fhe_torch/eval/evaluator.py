@@ -22,7 +22,10 @@ The NTT, base conversion and inner product run as CUDA kernels on a CUDA
 context (K1-K3, K11 and K8 or K7 on the u64 plan; K4-K6, K13 and K10 or
 K9 on the q32 plan, the inner product by whether the key has Shoup words)
 and as their plain torch versions on a CPU context; the glue between them
-is plain torch.  Every function returns new tensors.
+is plain torch.  Every function returns new tensors.  A ciphertext may
+carry leading batch axes ((..., size, L, N), ``stack_cts``): every function
+indexes the component axis from the end, and the kernels take the whole
+batch in one launch.
 """
 
 from __future__ import annotations
@@ -55,8 +58,8 @@ def add(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     if a.size == b.size:
         return a.with_data(mm.add_mod(a.data, b.data, q))
     big, small = (a, b) if a.size > b.size else (b, a)
-    head = mm.add_mod(big.data[: small.size], small.data, q)
-    return a.with_data(torch.cat([head, big.data[small.size:]]))
+    head = mm.add_mod(big.data[..., : small.size, :, :], small.data, q)
+    return a.with_data(torch.cat([head, big.data[..., small.size:, :, :]], dim=-3))
 
 
 def sub(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
@@ -65,24 +68,27 @@ def sub(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     if a.size == b.size:
         return a.with_data(mm.sub_mod(a.data, b.data, q))
     if a.size > b.size:
-        head = mm.sub_mod(a.data[: b.size], b.data, q)
-        return a.with_data(torch.cat([head, a.data[b.size:]]))
-    head = mm.sub_mod(a.data, b.data[: a.size], q)
-    return a.with_data(torch.cat([head, mm.neg_mod(b.data[a.size:], q)]))
+        head = mm.sub_mod(a.data[..., : b.size, :, :], b.data, q)
+        return a.with_data(torch.cat([head, a.data[..., b.size:, :, :]], dim=-3))
+    head = mm.sub_mod(a.data, b.data[..., : a.size, :, :], q)
+    return a.with_data(torch.cat([head, mm.neg_mod(b.data[..., a.size:, :, :], q)], dim=-3))
 
 
 def negate(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     return a.with_data(mm.neg_mod(a.data, ctx.level(a.chain_index).mod.q))
 
 
+def with_c0(a: Ciphertext, c0: torch.Tensor) -> Ciphertext:
+    """`a` with its first component replaced by c0 (..., L, N)."""
+    return a.with_data(torch.cat([c0.unsqueeze(-3), a.data[..., 1:, :, :]], dim=-3))
+
+
 def add_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
-    head = mm.add_mod(a.data[0], pt.data, ctx.level(a.chain_index).mod.q)
-    return a.with_data(torch.cat([head[None], a.data[1:]]))
+    return with_c0(a, mm.add_mod(a.data[..., 0, :, :], pt.data, ctx.level(a.chain_index).mod.q))
 
 
 def sub_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
-    head = mm.sub_mod(a.data[0], pt.data, ctx.level(a.chain_index).mod.q)
-    return a.with_data(torch.cat([head[None], a.data[1:]]))
+    return with_c0(a, mm.sub_mod(a.data[..., 0, :, :], pt.data, ctx.level(a.chain_index).mod.q))
 
 
 def multiply(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
@@ -94,19 +100,19 @@ def multiply(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
     comps: list = [None] * (a.size + b.size - 1)
     for i in range(a.size):
         for j in range(b.size):
-            t = mod.mul(a.data[i], b.data[j])
+            t = mod.mul(a.data[..., i, :, :], b.data[..., j, :, :])
             k = i + j
             comps[k] = t if comps[k] is None else mm.add_mod(comps[k], t, mod.q)
-    return replace(a, data=torch.stack(comps), scale=a.scale * b.scale,
+    return replace(a, data=torch.stack(comps, dim=-3), scale=a.scale * b.scale,
                    noise_scale_deg=a.noise_scale_deg + b.noise_scale_deg)
 
 
 def square(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     mod = ctx.level(a.chain_index).mod
-    a0, a1 = a.data[0], a.data[1]
+    a0, a1 = a.data[..., 0, :, :], a.data[..., 1, :, :]
     c0, c2, cross = mod.mul(a0, a0), mod.mul(a1, a1), mod.mul(a0, a1)
     cross = mm.add_mod(cross, cross, mod.q)
-    return replace(a, data=torch.stack([c0, cross, c2]), scale=a.scale * a.scale,
+    return replace(a, data=torch.stack([c0, cross, c2], dim=-3), scale=a.scale * a.scale,
                    noise_scale_deg=a.noise_scale_deg * 2)
 
 
@@ -139,7 +145,8 @@ def _reduce(x: torch.Tensor, out: ModulusVec) -> torch.Tensor:
 
 def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor, *,
           is_ntt: bool = True) -> torch.Tensor:
-    """Digit-decompose c2 ((size_Ql, N)) into (beta, size_QlP, N), NTT form:
+    """Digit-decompose c2 ((..., size_Ql, N)) into (..., beta, size_QlP, N),
+    NTT form:
     iNTT with the per-digit partQlHatInv scale fused, fast-convert each
     digit to the complement of QlP, NTT the converted limbs, and splice the
     digit's own NTT limbs in unchanged.  With is_ntt=False (BFV's
@@ -152,22 +159,25 @@ def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor, *,
         scaled = mm.mul_shoup(c2, ks.part_qhatinv, ks.part_qhatinv_shoup, level.mod.q)
     digits = []
     for dt in ks.digits:
-        conv = _bconv(scaled[dt.start:dt.end], dt.qhat_mod_p, dt.qhat_mod_p_diag, dt.comp_mod)
+        conv = _bconv(scaled[..., dt.start:dt.end, :].contiguous(), dt.qhat_mod_p,
+                      dt.qhat_mod_p_diag, dt.comp_mod)
         conv_ntt = forward_ntt(conv, dt.comp_ntt)
-        own = c2[dt.start:dt.end]
+        own = c2[..., dt.start:dt.end, :]
         if not is_ntt:
-            own = forward_ntt(own, ctx.ntt_view(level.ntt, tuple(range(dt.start, dt.end))))
-        digits.append(torch.cat([conv_ntt[: dt.start], own, conv_ntt[dt.start:]]))
-    return torch.stack(digits)
+            own = forward_ntt(own.contiguous(),
+                              ctx.ntt_view(level.ntt, tuple(range(dt.start, dt.end))))
+        digits.append(torch.cat([conv_ntt[..., : dt.start, :], own,
+                                 conv_ntt[..., dt.start:, :]], dim=-2))
+    return torch.stack(digits, dim=-3)
 
 
 def key_inner_product(ctx: FheContext, level: ContextLevel, t_mod_up: torch.Tensor,
                       key: RelinKey) -> torch.Tensor:
-    """(beta, size_QlP, N) x evk -> (2, size_QlP, N): K8/K10 for a key with
-    Shoup words (the relin key's default), K7/K9 for one without (the
-    Galois keys' default)."""
+    """(..., beta, size_QlP, N) x evk -> (..., 2, size_QlP, N): K8/K10 for a
+    key with Shoup words (the relin key's default), K7/K9 for one without
+    (the Galois keys' default); a batch of digits is one launch."""
     ks = level.ks
-    t = t_mod_up[: ks.beta].contiguous()
+    t = t_mod_up[..., : ks.beta, :, :].contiguous()
     qlp = ks.qlp_mod
     if key.shoup is not None:
         return key_inner_prod_shoup(t, key.data, key.shoup, ks.qlp_key_rows, qlp.q)
@@ -209,9 +219,9 @@ def moddown_from_ntt(ctx: FheContext, level: ContextLevel, cx: torch.Tensor, *,
 
 def keyswitch_core(ctx: FheContext, level: ContextLevel, c2: torch.Tensor, key: RelinKey, *,
                    input_ntt: bool = True, output_ntt: bool = True) -> torch.Tensor:
-    """Full hybrid keyswitch of one polynomial: returns (2, size_Ql, N), in
-    NTT form unless output_ntt is False; c2 in NTT form unless input_ntt
-    is False."""
+    """Full hybrid keyswitch of a polynomial (..., size_Ql, N): returns
+    (..., 2, size_Ql, N), in NTT form unless output_ntt is False; c2 in NTT
+    form unless input_ntt is False."""
     t_mod_up = modup(ctx, level, c2, is_ntt=input_ntt)
     cx = key_inner_product(ctx, level, t_mod_up, key)
     return moddown_from_ntt(ctx, level, cx, output_ntt=output_ntt)
@@ -222,8 +232,8 @@ def relinearize(ctx: FheContext, a: Ciphertext, rlk: RelinKey) -> Ciphertext:
     if a.size != 3:
         raise ValueError("relinearize expects a size-3 ciphertext")
     level = ctx.level(a.chain_index)
-    delta = keyswitch_core(ctx, level, a.data[2].contiguous(), rlk)
-    return a.with_data(mm.add_mod(a.data[:2], delta, level.mod.q))
+    delta = keyswitch_core(ctx, level, a.data[..., 2, :, :].contiguous(), rlk)
+    return a.with_data(mm.add_mod(a.data[..., :2, :, :], delta, level.mod.q))
 
 
 def rescale_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
@@ -234,16 +244,16 @@ def rescale_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     size_Ql = level.size
     q_last = level.mod.q[-1:]                  # (1, 1)
     half = q_last >> 1
-    last_coeff = inverse_ntt(a.data[:, -1:, :].contiguous(),
+    last_coeff = inverse_ntt(a.data[..., -1:, :].contiguous(),
                              ctx.ntt_view(level.ntt, (size_Ql - 1,)))
     # add q_last/2 for rounding, then reduce into each remaining q_i
     last_half = mm.add_mod(last_coeff, half, q_last)
     next_level = ctx.level(a.chain_index + 1)
     rest = next_level.mod
-    reduced = _reduce(last_half, rest)           # (size, L-1, N)
+    reduced = _reduce(last_half, rest)           # (..., size, L-1, N)
     tmp = mm.sub_mod(reduced, _reduce(half, rest), rest.q)
     # (ct - NTT(tmp)) * q_last^{-1}, fused into the forward transform
-    out = forward_ntt_sub_scale(tmp, a.data[:, :-1, :].contiguous(), next_level.ntt,
+    out = forward_ntt_sub_scale(tmp, a.data[..., :-1, :].contiguous(), next_level.ntt,
                                 level.inv_q_last_mod_q, level.inv_q_last_mod_q_shoup)
     return replace(a, data=out, chain_index=a.chain_index + 1,
                    scale=a.scale / ctx.q_values[size_Ql - 1])
@@ -294,14 +304,14 @@ def rescale_composite(ctx: FheContext, a: Ciphertext, limbs: int = 2) -> Ciphert
 
     drop_ntt, inv_q2, inv_q2_shoup, half_mod = ctx.composite_rescale_tables(a.chain_index,
                                                                             limbs)
-    coeff = inverse_ntt(a.data[:, keep:, :].contiguous(), drop_ntt)
+    coeff = inverse_ntt(a.data[..., keep:, :].contiguous(), drop_ntt)
     v = _garner_compose_u64(level, coeff, keep, limbs, qd)            # [0, Q2)
     # w = (v + Q2/2) mod Q2, then per remaining limb tmp_i = (w - Q2/2) mod
     # q_i, so that x - tmp == round(x / Q2) * Q2 (mod q_i)
     w = mm.csub(v + (q2 >> 1), q2)
     next_level = ctx.level(a.chain_index + limbs)
     tmp = mm.sub_mod(_reduce(w, next_level.mod), half_mod, next_level.mod.q)
-    out = forward_ntt_sub_scale(tmp, a.data[:, :keep, :].contiguous(), next_level.ntt,
+    out = forward_ntt_sub_scale(tmp, a.data[..., :keep, :].contiguous(), next_level.ntt,
                                 inv_q2, inv_q2_shoup)
     scale = a.scale
     for v_ in qd:
@@ -313,7 +323,7 @@ def mod_drop_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     """Drop the last limb without scaling (mod switch)."""
     if a.chain_index + 1 >= len(ctx.chain):
         raise ValueError("already at the last level; cannot drop further")
-    return replace(a, data=a.data[:, :-1, :].contiguous(), chain_index=a.chain_index + 1)
+    return replace(a, data=a.data[..., :-1, :].contiguous(), chain_index=a.chain_index + 1)
 
 
 # --------------------------------------------------------------------------
@@ -360,6 +370,6 @@ def apply_galois_with_key(ctx: FheContext, a: Ciphertext, elt: int,
     if a.size != 2:
         raise ValueError("rotate expects a size-2 ciphertext")
     level = ctx.level(a.chain_index)
-    d = keyswitch_core(ctx, level, a.data[1].contiguous(), key)
-    c0 = mm.add_mod(a.data[0], d[0], level.mod.q)
-    return a.with_data(apply_galois_ntt(torch.stack([c0, d[1]]), elt, ctx.n))
+    d = keyswitch_core(ctx, level, a.data[..., 1, :, :].contiguous(), key)
+    c0 = mm.add_mod(a.data[..., 0, :, :], d[..., 0, :, :], level.mod.q)
+    return a.with_data(apply_galois_ntt(torch.stack([c0, d[..., 1, :, :]], dim=-3), elt, ctx.n))

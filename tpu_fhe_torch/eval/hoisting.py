@@ -7,7 +7,8 @@ sums accumulate at QlP, and one moddown lands the result.
 
 An extended ("ext") ciphertext is an ordinary Ciphertext whose limb axis
 has size_Ql + size_P limbs and whose data is P times its logical value.
-Every function returns new tensors.
+Every function returns new tensors, and takes a ciphertext with leading
+batch axes ((..., size, L, N)) as well as one.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from ..ops.galois import apply_galois_ntt, galois_elt_from_step
 from ..scheme.ciphertext import Ciphertext, Plaintext
 from ..scheme.context import FheContext
 from ..scheme.keys import GaloisKey, RelinKey
-from .evaluator import key_inner_product, moddown_from_ntt, modup
+from .evaluator import key_inner_product, moddown_from_ntt, modup, with_c0
 
 
 def _times_p(ctx: FheContext, ct: Ciphertext, data: torch.Tensor) -> torch.Tensor:
@@ -33,19 +34,20 @@ def _times_p(ctx: FheContext, ct: Ciphertext, data: torch.Tensor) -> torch.Tenso
 
 def fast_rotation_precompute(ctx: FheContext, ct: Ciphertext) -> torch.Tensor:
     """The one modup of c1 that every rotation of `ct` shares:
-    (beta, size_QlP, N)."""
-    return modup(ctx, ctx.level(ct.chain_index), ct.data[1].contiguous())
+    (..., beta, size_QlP, N)."""
+    return modup(ctx, ctx.level(ct.chain_index), ct.data[..., 1, :, :].contiguous())
 
 
 def _rotation_ext(ctx: FheContext, ct: Ciphertext, precomp: torch.Tensor, elt: int,
                   key: RelinKey, p_c0: torch.Tensor | None) -> Ciphertext:
     """fast_rotation_ext with P*c0 given (None: not added)."""
     level = ctx.level(ct.chain_index)
-    cx = key_inner_product(ctx, level, precomp, key)          # (2, QlP, N), P * (...)
+    cx = key_inner_product(ctx, level, precomp, key)     # (..., 2, QlP, N), P * (...)
     if p_c0 is not None:
         size_Ql = level.size
-        c0 = mm.add_mod(cx[0, :size_Ql], p_c0, level.mod.q)
-        cx = torch.cat([torch.cat([c0, cx[0, size_Ql:]])[None], cx[1:]])
+        c0 = mm.add_mod(cx[..., 0, :size_Ql, :], p_c0, level.mod.q)
+        c0 = torch.cat([c0, cx[..., 0, size_Ql:, :]], dim=-2)
+        cx = torch.stack([c0, cx[..., 1, :, :]], dim=-3)
     return ct.with_data(apply_galois_ntt(cx, elt, ctx.n))
 
 
@@ -54,7 +56,7 @@ def fast_rotation_ext(ctx: FheContext, ct: Ciphertext, precomp: torch.Tensor, el
     """A rotation at QlP: the inner product of the hoisted digits with the
     fused key, with `add_first` plus P*c0 on the Ql limbs of its first
     component, then the automorphism."""
-    p_c0 = _times_p(ctx, ct, ct.data[0]) if add_first else None
+    p_c0 = _times_p(ctx, ct, ct.data[..., 0, :, :]) if add_first else None
     return _rotation_ext(ctx, ct, precomp, elt, key, p_c0)
 
 
@@ -62,8 +64,8 @@ def keyswitch_ext(ctx: FheContext, ct: Ciphertext) -> Ciphertext:
     """Lift a ciphertext from Ql to QlP: every Ql limb times P mod q_j, the
     P limbs zero."""
     scaled = _times_p(ctx, ct, ct.data)
-    zeros = scaled.new_zeros((ct.size, ctx.level(ct.chain_index).ks.alpha, ctx.n))
-    return ct.with_data(torch.cat([scaled, zeros], dim=1))
+    zeros = scaled.new_zeros(scaled.shape[:-2] + (ctx.level(ct.chain_index).ks.alpha, ctx.n))
+    return ct.with_data(torch.cat([scaled, zeros], dim=-2))
 
 
 def keyswitch_down(ctx: FheContext, ct_ext: Ciphertext) -> Ciphertext:
@@ -74,7 +76,7 @@ def keyswitch_down(ctx: FheContext, ct_ext: Ciphertext) -> Ciphertext:
 def keyswitch_down_first(ctx: FheContext, ct_ext: Ciphertext) -> Ciphertext:
     """Moddown c0 only; returns a size-1 ciphertext."""
     level = ctx.level(ct_ext.chain_index)
-    return ct_ext.with_data(moddown_from_ntt(ctx, level, ct_ext.data[0:1]))
+    return ct_ext.with_data(moddown_from_ntt(ctx, level, ct_ext.data[..., 0:1, :, :]))
 
 
 def eval_mult_ext(ctx: FheContext, ct_ext: Ciphertext, pt_ext: Plaintext) -> Ciphertext:
@@ -94,14 +96,13 @@ def eval_add_ext(ctx: FheContext, a: Ciphertext, b: Ciphertext) -> Ciphertext:
 def reset_poly_ext(ctx: FheContext, ct_ext: Ciphertext, index: int = 0) -> Ciphertext:
     """Zero one component."""
     data = ct_ext.data.clone()
-    data[index] = 0
+    data[..., index, :, :] = 0
     return ct_ext.with_data(data)
 
 
 def rotate_c0(ctx: FheContext, ct: Ciphertext, elt: int) -> Ciphertext:
     """Apply the automorphism to c0 only."""
-    c0 = apply_galois_ntt(ct.data[0], elt, ctx.n)
-    return ct.with_data(torch.cat([c0[None], ct.data[1:]]))
+    return with_c0(ct, apply_galois_ntt(ct.data[..., 0, :, :], elt, ctx.n))
 
 
 def hoisted_rotation_sum(ctx: FheContext, ct: Ciphertext, steps, gk: GaloisKey) -> Ciphertext:
@@ -112,7 +113,7 @@ def hoisted_rotation_sum(ctx: FheContext, ct: Ciphertext, steps, gk: GaloisKey) 
     if ct.size != 2:
         raise ValueError("hoisted rotation-sum expects a size-2 ciphertext")
     pre = fast_rotation_precompute(ctx, ct)
-    p_c0 = _times_p(ctx, ct, ct.data[0])
+    p_c0 = _times_p(ctx, ct, ct.data[..., 0, :, :])
     acc = None
     for step in steps:
         elt = galois_elt_from_step(step, ctx.n)

@@ -8,13 +8,17 @@ convolution leaves the data in place and doubles the slot stride
 (slotstr + 1), so rotation steps are premultiplied by 2^slotstr and the
 bootstrap runs at (w << slotstr)^2 slots.
 
-Channels run one at a time through the evaluation layer (``eval/auto.py``,
-``eval/chebyshev.py``, ``eval/hoisting.py``) and the bootstrapper, so on a
-CUDA context every NTT, base conversion and key inner product is one of
-the port's kernels.  Where a layer applies per-channel constants (batch
-norm, the fully connected layer, the convolution's weights), their CRT
-lifts go to the device in one copy per layer and one modular multiply
-serves the stacked channels (``stack_cts``).
+Channels run through the evaluation layer (``eval/auto.py``,
+``eval/chebyshev.py``, ``eval/hoisting.py``) and the bootstrapper in
+chunks of ``channel_batch`` channels stacked with ``stack_cts`` (the
+reference's default channel batching): the bootstrap, the Chebyshev ReLU,
+the sign stages of the composite ReLU and the residual add run once per
+chunk, so on a CUDA context every NTT, base conversion and key inner
+product is one launch of the port's kernel for the whole chunk.  A batch
+of 1 runs the channels one at a time.  Where a layer applies per-channel
+constants (batch norm, the fully connected layer, the convolution's
+weights), their CRT lifts go to the device in one copy per layer and one
+modular multiply serves the stacked channels.
 
 The convolution is hoisted: one modup per input channel serves every tap,
 the taps accumulate at the extended basis QlP, and one moddown lands each
@@ -25,8 +29,8 @@ tap) c = rint(weight * scale / 2^30) + 2^31, and per QlP limb the exact
 (e - 2^31)(c - 2^31) = e c - 2^31 e - 2^31 c_int mod q, then the masks'
 forward NTT at QlP.  A weight with |c_int| >= 2^31 (|weight| >= about 8 at
 the working scale), or an embedding outside the fixed-point range, takes
-the host-encode path, where the reference raises.  The reference's vmapped
-channel batches and stage jits are not ported: they batch the same values.
+the host-encode path, where the reference raises.  The reference's stage
+jits have no counterpart: they served a TPU's compiler.
 """
 
 from __future__ import annotations
@@ -113,6 +117,9 @@ def relu_composite_clear(x: np.ndarray) -> np.ndarray:
 
 CONV_FP_BITS = 30               # fixed-point bits of the device-encoded masks
 CONV_CACHE_BYTES = 512 * 10**6  # finished-plaintext cache budget of a conv layer
+MAX_CHANNEL_BATCH = 64
+CPU_BATCH_BUDGET = 2500 * 10**6  # the reference's default channel-batch budget
+CUDA_BATCH_SHARE = 0.1          # of the card's memory, the channel-batch budget there
 
 
 def _degree_one(ctx: FheContext, cts: list[Ciphertext]) -> list[Ciphertext]:
@@ -128,14 +135,56 @@ def _residues(ctx: FheContext, arr: np.ndarray) -> torch.Tensor:
 class DNN:
     """Encrypted-inference layer library bound to one context and encoder."""
 
-    def __init__(self, ctx: FheContext, encoder, scale: float | None = None):
+    def __init__(self, ctx: FheContext, encoder, scale: float | None = None,
+                 channel_batch: int | None = None):
+        """`channel_batch` forces the channels per chunk (1 runs them one at
+        a time); None takes channel_batch()'s memory rule."""
         self.ctx = ctx
         self.encoder = encoder
         sf, _ = auto.scaling_factors(ctx)
         self.scale = scale if scale is not None else sf[0]
         self.gk: GaloisKey | None = None
         self.mul_key: RelinKey | None = None
+        self.forced_batch = channel_batch
         self._pt_cache: dict = {}
+
+    def batch_budget(self) -> int:
+        """Bytes the channel batch may take: CUDA_BATCH_SHARE of the card's
+        memory on a CUDA context, the reference's CPU_BATCH_BUDGET on the
+        CPU."""
+        dev = self.ctx.device
+        if dev.type == "cuda":
+            return int(CUDA_BATCH_SHARE * torch.cuda.get_device_properties(dev).total_memory)
+        return CPU_BATCH_BUDGET
+
+    def channel_batch(self, n_ch: int) -> int:
+        """Channels per chunk: the forced value (at most n_ch), else the
+        largest power of two <= min(n_ch, 64, budget // (10 (size_Ql +
+        size_P) N 8)), the reference's rule (about 10 extended-basis copies
+        of a channel in a hoisted BSGS level)."""
+        if self.forced_batch is not None:
+            return max(1, min(n_ch, int(self.forced_batch)))
+        ctx = self.ctx
+        per_ch = 10 * (ctx.level(1).size + ctx.params.size_P) * ctx.n * 8
+        b = max(1, min(n_ch, MAX_CHANNEL_BATCH, self.batch_budget() // per_ch))
+        return 1 << (b.bit_length() - 1)
+
+    def _map_cts(self, fn, *lists: list[Ciphertext]) -> list[Ciphertext]:
+        """fn over the channels of equal-length lists, one chunk of
+        channel_batch channels at a time (each list's chunk stacked), or one
+        channel at a time when that is 1."""
+        n = len(lists[0])
+        b = self.channel_batch(n)
+        if b <= 1:
+            return [fn(*xs) for xs in zip(*lists)]
+        out = []
+        for lo in range(0, n, b):
+            chunk = [stack_cts(cts[lo:lo + b]) for cts in lists]
+            out.extend(unstack_cts(fn(*chunk), chunk[0].data.shape[0]))
+        return out
+
+    def _map(self, t: TensorCT, fn) -> TensorCT:
+        return TensorCT(self._map_cts(fn, t.cts), t.width, t.slotstr)
 
     # -- key management ---------------------------------------------------
     @staticmethod
@@ -424,29 +473,58 @@ class DNN:
     def relu(self, t: TensorCT, a: float, b: float, deg: int) -> TensorCT:
         """Chebyshev approximation of max(0, x) on [a, b]."""
         coeffs = cheb.eval_chebyshev_coefficients(lambda x: max(0.0, x), a, b, deg)
-        return self._each(t, lambda ct: cheb.eval_chebyshev_series(
+        return self._map(t, lambda ct: cheb.eval_chebyshev_series(
             self.ctx, ct, self.mul_key, coeffs, a, b))
+
+    def _sign_ct(self, ct: Ciphertext, k: int) -> Ciphertext:
+        a, b = _SIGN_RANGES[k]
+        return cheb.eval_chebyshev_series(self.ctx, ct, self.mul_key, _SIGN_COEFFS[k], a, b)
 
     def sign(self, t: TensorCT, k: int) -> TensorCT:
         """Stage k of the 3-stage minimax sign composite."""
-        a, b = _SIGN_RANGES[k]
-        return self._each(t, lambda ct: cheb.eval_chebyshev_series(
-            self.ctx, ct, self.mul_key, _SIGN_COEFFS[k], a, b))
+        return self._map(t, lambda ct: self._sign_ct(ct, k))
 
     def _boot_one(self, bootstrapper, ct: Ciphertext, slots: int) -> Ciphertext:
-        """One bootstrap, under the 'Bootstrap' timer bucket."""
+        """One bootstrap of a channel or a chunk, under the 'Bootstrap' timer
+        bucket."""
         with timer.section("Bootstrap"):
             return bootstrapper.eval_bootstrap(ct, slots=slots)
 
     def bootstrap(self, t: TensorCT, bootstrapper) -> TensorCT:
-        """EvalBootstrap of every channel at (w << slotstr)^2 slots."""
-        return self._each(t, lambda ct: self._boot_one(bootstrapper, ct, t.num_slots))
+        """EvalBootstrap of every channel at (w << slotstr)^2 slots, one
+        chunk at a time."""
+        return self._map(t, lambda ct: self._boot_one(bootstrapper, ct, t.num_slots))
 
     def relu_composite(self, t: TensorCT, bootstrapper) -> TensorCT:
         """ReLU(x) = x (sign(sign(sign(0.1 x))) + 1) / 2 with a bootstrap
-        after each stage, channel by channel: the sign stages and the last
-        multiply under the 'Relu' timer bucket, each bootstrap under
-        'Bootstrap'."""
+        after each stage: per chunk of channel_batch channels, stage 0, a
+        bootstrap, stage 1, a bootstrap, stage 2 with the last multiply, a
+        bootstrap; the sign stages and the last multiply under the 'Relu'
+        timer bucket, each bootstrap under 'Bootstrap'.  A batch of 1 runs
+        _relu_composite_seq."""
+        if self.channel_batch(t.num_ch) <= 1:
+            return self._relu_composite_seq(t, bootstrapper)
+        ctx = self.ctx
+        slots = t.num_slots
+
+        def chunk(x: Ciphertext) -> Ciphertext:
+            with timer.section("Relu"):
+                s = self._sign_ct(auto.mult_const(ctx, x, 0.1), 0)
+            s = self._boot_one(bootstrapper, s, slots)
+            with timer.section("Relu"):
+                s = self._sign_ct(s, 1)
+            s = self._boot_one(bootstrapper, s, slots)
+            with timer.section("Relu"):
+                s = self._sign_ct(s, 2)
+                s = auto.eval_mult_auto(ctx, auto.add_const(ctx, s, 1.0),
+                                        auto.mult_const(ctx, x, 0.5), self.mul_key)
+            return self._boot_one(bootstrapper, s, slots)
+
+        return self._map(t, chunk)
+
+    def _relu_composite_seq(self, t: TensorCT, bootstrapper) -> TensorCT:
+        """The composite ReLU channel by channel, each stage over every
+        channel before the next (batching disabled)."""
         ctx = self.ctx
         with timer.section("Relu"):
             s = self.sign(self._each(t, lambda ct: auto.mult_const(ctx, ct, 0.1)), 0)
@@ -550,7 +628,9 @@ class DNN:
         return TensorCT(unstack_cts(out, T), t.width, t.slotstr)
 
     def add(self, a: TensorCT, b: TensorCT) -> TensorCT:
+        """The residual add, one chunk at a time (eval_add_auto's level and
+        depth adjustment branches on metadata, which a chunk shares)."""
         if (a.num_ch, a.width, a.slotstr) != (b.num_ch, b.width, b.slotstr):
             raise ValueError("TensorCT dimension mismatch in add")
-        return TensorCT([auto.eval_add_auto(self.ctx, x, y) for x, y in zip(a.cts, b.cts)],
-                        a.width, a.slotstr)
+        return TensorCT(self._map_cts(lambda x, y: auto.eval_add_auto(self.ctx, x, y),
+                                      a.cts, b.cts), a.width, a.slotstr)

@@ -7,18 +7,24 @@ connected layer, on ``models/dnn.py``.  Weights load from PyTorch-layout
 .npy files ([out, in, kh, kw] -> (kh, kw, in, out)) or come from
 ``random_weights``; CIFAR images from a (10000, 3, 32, 32) float32 .npy.
 ``resnet20_infer_clear`` is the float64 shadow of the same layer math with
-an exact ReLU.  The reference's checkpoints (``save_tensor_ct`` /
-``load_tensor_ct``) are not ported: they need its serializer.
+an exact ReLU.  ``save_tensor_ct`` / ``load_tensor_ct`` checkpoint a
+tensor between stages (one file per channel in the serializer's format,
+which the reference reads too, and a ``meta.json`` with the geometry, the
+stage and the timer buckets), so that a long run resumes in a later
+process (``start_after``).
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from dataclasses import dataclass
 
 import numpy as np
 
-from ..utils import timer
+from ..scheme.context import FheContext
+from ..utils import serialize as ser, timer
 from .dnn import DNN, TensorCT
 
 
@@ -228,6 +234,43 @@ def resnet20_infer(x: TensorCT, model: DNN, bootstrapper, weights: dict, log=pri
         if on_stage_done is not None:
             on_stage_done(name, x)
     return x
+
+
+# --------------------------------------------------------------------------
+# checkpoints
+# --------------------------------------------------------------------------
+
+def save_tensor_ct(t: TensorCT, path: str, stage: str = "", extra: dict | None = None):
+    """Write every channel (``ch<k>.ct``), then ``meta.json`` (channels,
+    width, slot stride, `stage`, the timer buckets' seconds and `extra`)
+    through a temporary file and an atomic replace: a directory with a
+    meta.json holds a whole checkpoint."""
+    os.makedirs(path, exist_ok=True)
+    for k, ct in enumerate(t.cts):
+        with open(f"{path}/ch{k:03d}.ct", "wb") as fp:
+            ser.save_ciphertext(ct, fp)
+    meta = {"num_ch": t.num_ch, "width": t.width, "slotstr": t.slotstr, "stage": stage,
+            "timers": timer.accumulated()}
+    if extra:
+        meta.update(extra)
+    tmp = f"{path}/meta.json.tmp"
+    with open(tmp, "w") as fp:
+        json.dump(meta, fp)
+    os.replace(tmp, f"{path}/meta.json")
+
+
+def load_tensor_ct(ctx: FheContext, path: str) -> tuple[TensorCT, dict]:
+    """-> (tensor, meta) of a checkpoint, on `ctx`'s device; adds the saved
+    timer buckets' seconds to this process's."""
+    with open(f"{path}/meta.json") as fp:
+        meta = json.load(fp)
+    cts = []
+    for k in range(meta["num_ch"]):
+        with open(f"{path}/ch{k:03d}.ct", "rb") as fp:
+            cts.append(ser.load_ciphertext(ctx, fp))
+    for name, secs in meta.get("timers", {}).items():
+        timer.add_accumulated(name, secs)
+    return TensorCT(cts, meta["width"], meta["slotstr"]), meta
 
 
 def resnet20_infer_clear(image: np.ndarray, weights: dict, relu=None, blocks: int = 3,

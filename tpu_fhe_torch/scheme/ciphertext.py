@@ -8,8 +8,10 @@ return new objects.  CKKS and BGV ciphertexts are in NTT form, BFV's in
 coefficient form; a BFV/BGV plaintext is one (1, N) coefficient-form row
 mod t.
 ``stack_cts`` / ``unstack_cts`` gather same-metadata ciphertexts into one
-whose data has a leading batch axis, so that one torch op serves every
-channel of a DNN layer.
+whose data has a leading batch axis, so that one torch op, and one launch
+of each kernel, serves every channel of a DNN layer or a bootstrap.  Every
+CKKS operation of the port takes such a batch: it indexes the component
+axis from the end (``data[..., i, :, :]``), never from the front.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ import torch
 
 @dataclass(frozen=True)
 class Ciphertext:
-    data: torch.Tensor          # (size, L, N) residues
+    data: torch.Tensor          # (..., size, L, N) residues; no leading axis for one
     chain_index: int            # index into the context chain (1 = fresh)
     scale: float = 1.0          # CKKS scaling factor
     noise_scale_deg: int = 1    # FLEXIBLEAUTO degree of the scaling factor
@@ -31,7 +33,7 @@ class Ciphertext:
 
     @property
     def size(self) -> int:
-        return self.data.shape[0]
+        return self.data.shape[-3]
 
     def with_data(self, data: torch.Tensor) -> "Ciphertext":
         return replace(self, data=data)

@@ -78,6 +78,22 @@ def _t_scaled_error(context: FheContext, gen: torch.Generator, level) -> torch.T
     return level.mod.mul(e, t_mod_q)
 
 
+def evk_shoup(context: FheContext, data: torch.Tensor) -> torch.Tensor:
+    """Shoup companion words of a switching key's limbs (key level)."""
+    kl = context.key_level
+    if context.is_q32:
+        return mm.shoup32_of(data, kl.mod.q)
+    return mm.shoup_of(data, kl.mod.q, kl.mod.ratio_lo, kl.mod.ratio_hi)
+
+
+def seeded_uniform(context: FheContext, level, seed: int) -> torch.Tensor:
+    """The uniform (L, N) residues at `level` that `seed` gives: drawn by a
+    CPU generator seeded with it (so any device draws the same), then moved
+    to the context's device.  The `a` of the seed-compressed form."""
+    gen = torch.Generator().manual_seed(seed)
+    return prng.sample_uniform(gen, level.mod.q.cpu(), context.n).to(context.device)
+
+
 def _generator(seed: int | torch.Generator, device: torch.device) -> torch.Generator:
     if isinstance(seed, torch.Generator):
         return seed
@@ -144,10 +160,7 @@ class SecretKey:
 
     def evk_shoup(self, data: torch.Tensor) -> torch.Tensor:
         """Shoup companion words of a switching key's limbs."""
-        kl = self.context.key_level
-        if self.context.is_q32:
-            return mm.shoup32_of(data, kl.mod.q)
-        return mm.shoup_of(data, kl.mod.q, kl.mod.ratio_lo, kl.mod.ratio_hi)
+        return evk_shoup(self.context, data)
 
     def relin_key(self, shoup: bool = True) -> RelinKey:
         """The relinearization key; `shoup` (default on) attaches the Shoup
@@ -189,10 +202,23 @@ class SecretKey:
     # -- encryption / decryption ------------------------------------------
     def encrypt_symmetric(self, pt: Plaintext) -> Ciphertext:
         """c = (b + m, a) with fresh (b, a) at the plaintext's level."""
+        level = self.context.level(pt.chain_index)
+        return self._encrypt_with(pt, prng.sample_uniform(self.generator, level.mod.q,
+                                                          self.context.n))
+
+    def encrypt_symmetric_seeded(self, pt: Plaintext) -> tuple[Ciphertext, int]:
+        """(ct, seed): a symmetric encryption whose a is seeded_uniform of a
+        seed drawn from this key's generator, so the seed and c0 store it
+        (utils/serialize.py save_ciphertext_symmetric)."""
+        seed = int(torch.randint(0, 2**62, (1,), generator=self.generator,
+                                 device=self.generator.device).item())
+        level = self.context.level(pt.chain_index)
+        return self._encrypt_with(pt, seeded_uniform(self.context, level, seed)), seed
+
+    def _encrypt_with(self, pt: Plaintext, a: torch.Tensor) -> Ciphertext:
         ctx = self.context
         level = ctx.level(pt.chain_index)
         q = level.mod.q
-        a = prng.sample_uniform(self.generator, q, ctx.n)
         e = forward_ntt(_t_scaled_error(ctx, self.generator, level), level.ntt)
         b = mm.neg_mod(mm.add_mod(level.mod.mul(a, self.s_ntt[: level.size]), e, q), q)
         return Ciphertext(
@@ -210,12 +236,13 @@ class SecretKey:
         return self.encrypt_symmetric(Plaintext(zero, chain_index=chain_index))
 
     def decrypt(self, ct: Ciphertext) -> Plaintext:
-        """NTT-form decrypt: m = sum_i c_i s^i."""
+        """NTT-form decrypt: m = sum_i c_i s^i (of each ciphertext of a
+        batch: a (..., L, N) plaintext)."""
         level = self.context.level(ct.chain_index)
         s = self.s_ntt[: level.size]
-        acc = ct.data[ct.size - 1]
+        acc = ct.data[..., ct.size - 1, :, :]
         for i in range(ct.size - 2, -1, -1):
-            acc = mm.add_mod(level.mod.mul(acc, s), ct.data[i], level.mod.q)
+            acc = mm.add_mod(level.mod.mul(acc, s), ct.data[..., i, :, :], level.mod.q)
         return Plaintext(data=acc, chain_index=ct.chain_index, scale=ct.scale,
                          noise_scale_deg=ct.noise_scale_deg)
 

@@ -2,15 +2,17 @@
 
 The JAX package hands its state over as numpy arrays: ``uint64`` from its
 ``W64.to_np()`` (the secret key in NTT form (QP, N), switching-key data
-(dnum, 2, QP, N) and its Shoup words, ciphertexts (size, L, N) and
-plaintexts (L, N)), and, on a q32 context, its compact state as bare
+(dnum, 2, QP, N) and its Shoup words, ciphertexts (size, L, N) or a
+channel batch of them (B, size, L, N) and plaintexts (L, N)), and, on a
+q32 context, its compact state as bare
 ``uint32`` (switching keys and their Shoup32 words, ``tpu_fhe/scheme/keys.py``
 :165-192).  These helpers turn such arrays into the port's tensors of the
 same values in the context's word (int64, or int32 on a q32 context) on its
 device, and back.  BFV/BGV state crosses the same way: coefficient-form
 ciphertexts with their correction factor and flags, mod-t plaintexts (one
-(1, N) row) and BGV keys, which have the CKKS shapes.  They take plain numpy, so the port never imports the
-JAX package.
+(1, N) row) and BGV keys, which have the CKKS shapes.  The reference's
+serialized files cross through ``utils/serialize.py``, which reads its
+format.  They take plain numpy, so the port never imports the JAX package.
 """
 
 from __future__ import annotations
@@ -75,9 +77,10 @@ def ciphertext_from_np(ctx: FheContext, data: np.ndarray, chain_index: int,
                        scale: float = 1.0, noise_scale_deg: int = 1,
                        correction_factor: int = 1, is_ntt_form: bool = True,
                        is_asymmetric: bool = False) -> Ciphertext:
-    """A ciphertext (size, L, N) at `chain_index` with the given metadata
-    (NTT form unless is_ntt_form is False, as BFV's are)."""
-    if data.shape[1] != ctx.level(chain_index).size:
+    """A ciphertext (size, L, N), or a batch of them (B, size, L, N), at
+    `chain_index` with the given metadata (NTT form unless is_ntt_form is
+    False, as BFV's are)."""
+    if data.ndim not in (3, 4) or data.shape[-2] != ctx.level(chain_index).size:
         raise ValueError("ciphertext limb count does not match its chain index")
     return Ciphertext(word_tensor(ctx, data), chain_index=chain_index, scale=scale,
                       noise_scale_deg=noise_scale_deg, correction_factor=correction_factor,

@@ -47,6 +47,12 @@ def counts() -> dict[str, int]:
     return dict(_COUNT)
 
 
+def add_accumulated(name: str, seconds: float):
+    """Add seconds recorded elsewhere to bucket `name` (a checkpoint's
+    buckets, restored on resume)."""
+    _ACC[name] += seconds
+
+
 def print_accumulated(out=print):
     """Every bucket, the largest first: ms and the sections entered."""
     width = max((len(k) for k in _ACC), default=4)
