@@ -133,7 +133,11 @@ Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
     plan but K11 launched (counters set to 0 first) and each layer
     bit-identical, with the same chain index, scale and noise-scale
     degree, to the same through the plain versions; relu_composite within
-    1e-3 of its float64 composite;
+    1e-3 of its float64 composite; then the channel-packed convolution
+    (models/conv_packed.py) 5 -> 3 at 6 x 6 and the diagonal FC layer at
+    rows 4, cols 16 with a bias, with their Galois keys, each bit-identical
+    to the same through the plain versions and within 1e-3 (conv) and
+    1e-4 (FC) of numpy;
 13. encrypted ResNet-20 at full width on the q32 plan
     (examples/resnet20_infer.py --q32: N = 2^16, a 32 x 32 x 3 image,
     planes 16/32/64 from random_weights(default_rng(17)), 11 levels after
@@ -190,9 +194,27 @@ eval/bfv_eval.py, bgv_eval.py), the ResNet-20 context freed:
     traffic, keygen included, through the kernels equal to the same
     through the plain versions, bit for bit, metadata included.
 
+Then, the BFV/BGV keys freed, the channel-packed convolution and the
+diagonal FC layer (tpu_fhe_torch/models/conv_packed.py):
+
+15. ResNet-20's layer shapes, packed, at full width on the q32 plan
+    (phase 13's context: N = 2^16, 60 + 30 limbs, dnum 2; mask scale 2^40,
+    56 Galois keys without Shoup words): the 3 x 3 convolutions 16 -> 16
+    at 32 x 32, 32 -> 32 at 16 x 16 and 64 -> 64 at 8 x 8 (one input and
+    one output ciphertext each, the output channels in chunks of 16, so
+    the collapse rotations run K9 over a batch) and the FC layer 64 -> 10
+    (rows padded to 16) with a bias, on seeded inputs: each layer within
+    1e-3 (conv) or 1e-4 (FC) of numpy float64, K9 launched once per rotate
+    call; per layer its ms (CUDA events), rotate calls, launches of each
+    kernel (counters set to 0 first), host seconds of mask encoding and
+    peak memory; every distinct wrapper call of a first pass held against
+    its plain version as it came, the timed pass equal to it, and each
+    kernel's widest call timed and bounded.
+
 Each phase's seconds, then the kernels line (every kernel of both plans,
 its launches summed over the requests, rotations, EvalMod, raise_mod, the
-flagship bootstrap, the DNN layers, the ResNet-20 inference and phase 14, its
+flagship bootstrap, the DNN layers, the ResNet-20 inference, phase 14 and
+the packed layers, its
 headline numbers and under "checks" each shape it was held at with that
 shape's ms, plain ms and bound) and the line {"ok": true, "device":
 {...}}.
@@ -451,12 +473,20 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seconds["14"] = time.time() - t0
+    # -- 15. ResNet-20's layer shapes, packed, at full width on the q32 plan
+    t0 = time.time()
+    plans[1]["packed"] = packed_phase(plans[1]["ck"], card)
+    plans[0]["packed"] = dict.fromkeys(plans[0]["launches"], 0)
+    gc.collect()
+    torch.cuda.empty_cache()
+    seconds["15"] = time.time() - t0
     log("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     line = []
     for plan in plans:
         line += plan["ck"].line({name: count + plan["emod"][name] + plan["raised"][name]
                                  + plan["boot"][name] + plan["dnn"][name]
                                  + plan["resnet"][name] + plan["bfv"][name]
+                                 + plan["packed"][name]
                                  for name, count in plan["launches"].items()})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2152,6 +2182,12 @@ RESNET_LEVELS_AFTER = 11                 # examples/resnet20_infer.py:104
 RESNET_SLOTS = RESNET_WIDTH ** 2
 RESNET_MAX_ERR = 1e-2
 RESNET_CHECK_BATCH = 4                   # channels of phase 13's batched-vs-per-channel check
+# phase 15: ResNet-20's three convolution shapes (channels, width) and its
+# classifier (classes, features, rows padded to a power of two), packed
+PACKED_LAYERS = ((16, 32), (32, 16), (64, 8))
+PACKED_FC = (10, 64, 16)
+PACKED_SCALE = 2.0 ** 40                 # the reference's mask scale (conv_packed.py:58)
+PACKED_CONV_TOL, PACKED_FC_TOL = 1e-3, 1e-4   # tests/test_conv_packed.py's bounds
 # the per-channel inference's launches, measured on one H100 (PERF.md's
 # kernel table), beside the batched inference's
 PER_CHANNEL_LAUNCHES = {"ntt_fwd32": 14294, "ntt_inv32": 43091, "ntt_fwd_landing32": 34944,
@@ -2256,7 +2292,86 @@ def dnn_plain_phase(tag: str, ck: Checker) -> dict:
         f"(limit {DNN_MAX_ERR}); phase 12 in {time.time() - t0:.1f} s")
     if not err <= DNN_MAX_ERR:
         fail(f"{tag} relu_composite: max error {err} > {DNN_MAX_ERR}")
+    packed = packed_plain_cases(tag, ctx, enc, sk, ck)
+    return {name: count + packed[name] for name, count in launches.items()}
+
+
+def packed_plain_cases(tag: str, ctx, enc, sk, ck: Checker) -> dict:
+    """Phase 12, continued: the packed convolution 5 -> 3 at 6 x 6 (one
+    input and one output ciphertext, the output channels in chunks of the
+    memory rule's 2) and the diagonal FC layer at rows 4, cols 16 with a
+    bias, on phase 12's context with their Galois keys: each through the
+    kernels equal to the same through the plain versions, bit for bit,
+    metadata included, and decoding within PACKED_CONV_TOL / PACKED_FC_TOL
+    of numpy.  The mask scale is 2^40 on q32, where a rescale drops a
+    30-bit prime, and 2^59 on u64, where it drops a 59-bit prime.  Returns
+    the launch counts of the two layers."""
+    import torch
+
+    from tpu_fhe_torch.models.conv_packed import (PackedConv, fc_rotation_indices,
+                                                  fc_weight_encode, fully_connected)
+
+    scale = PACKED_SCALE if tag == "q32" else 2.0 ** 59
+    pc = PackedConv(ctx, enc, scale=scale)
+    lay = pc.layout(6, 3)
+    rows, cols = 4, 16
+    slots = ctx.n // 2
+    gk = sk.galois_key(sorted(set(pc.rotation_indices(lay))
+                              | set(fc_rotation_indices(rows, cols, slots))))
+    rng = np.random.default_rng(37)
+    images = rng.uniform(-1, 1, (5, 6, 6))
+    filt = rng.uniform(-0.5, 0.5, (3, 5, 3, 3))
+    weight, x, bias = (rng.uniform(-1, 1, (rows, cols)), rng.uniform(-1, 1, cols),
+                       rng.uniform(-0.5, 0.5, rows))
+    din = pc.zero_pad_encode(images, lay, sk)
+    ct = sk.encrypt_symmetric(enc.encode(np.pad(x, (0, slots - cols)), scale, slots=slots))
+
+    def fc():
+        diag = fc_weight_encode(enc, weight, scale)
+        b = enc.encode(np.pad(bias, (0, slots - rows)), fc_output_scale(ctx, ct, diag[0]),
+                       chain_index=2, slots=slots)
+        return [fully_connected(ctx, gk, ct, diag, cols, b)]
+
+    cases = [("packed conv 5 -> 3 at 6 x 6", lambda: pc.eval_convolution(filt, gk, din, lay)),
+             ("packed FC 16 -> 4 with bias", fc)]
+    torch.cuda.synchronize()
+    ck.reset()
+    outs = [run() for _, run in cases]
+    torch.cuda.synchronize()
+    launches = ck.launches()
+    log(f"[{tag} dnn] the packed conv (output channels in chunks of "
+        f"{pc.channel_batch(3)}) and FC: launches {launches}")
+    for (what, run), got in zip(cases, outs):
+        plain_matches(tag, f"DNN {what}", ck, run, got)
+    conv_err = float(np.max(np.abs(pc.decode_outputs(outs[0], lay, 3, sk)
+                                   - ref_conv_same(images, filt))))
+    fc_err = float(np.max(np.abs(enc.decode(sk.decrypt(outs[1][0])).real[:rows]
+                                 - (weight @ x + bias))))
+    log(f"[{tag} dnn] packed conv max err {conv_err:.3e} (limit {PACKED_CONV_TOL}), FC "
+        f"{fc_err:.3e} (limit {PACKED_FC_TOL}) against numpy")
+    if not (conv_err <= PACKED_CONV_TOL and fc_err <= PACKED_FC_TOL):
+        fail(f"{tag} packed layers: max error conv {conv_err}, FC {fc_err}")
     return launches
+
+
+def ref_conv_same(images: np.ndarray, filt: np.ndarray) -> np.ndarray:
+    """images (c_in, h, h), filt (c_out, c_in, f, f): the 'same'
+    zero-padded convolution in float64 (tests/test_conv_packed.py's)."""
+    c_out, c_in, f, _ = filt.shape
+    h = images.shape[1]
+    p = (f - 1) // 2
+    padded = np.pad(images, ((0, 0), (p, p), (p, p)))
+    out = np.zeros((c_out, h, h))
+    for di in range(f):
+        for dj in range(f):
+            out += np.einsum("kc,cij->kij", filt[:, :, di, dj], padded[:, di:di + h, dj:dj + h])
+    return out
+
+
+def fc_output_scale(ctx, ct, diag) -> float:
+    """The scale of fully_connected's sum, which its bias plaintext takes:
+    the product's, divided by the prime that rescale_to_next drops."""
+    return ct.scale * diag.scale / ctx.q_values[ctx.level(ct.chain_index).size - 1]
 
 
 def resnet_phase(ck: Checker, card: str) -> dict:
@@ -2479,6 +2594,159 @@ def checkpoint_round_trip(ctx, out) -> None:
         fail("q32 resnet: the checkpoint round trip changed the tensor")
     log(f"[q32 resnet] checkpoint of the output ({out.num_ch} channels): {mb:.1f} MB, saved in "
         f"{t1 - t0:.2f} s, loaded in {t2 - t1:.2f} s, every channel equal, metadata included")
+
+
+def packed_phase(ck: Checker, card: str) -> dict:
+    """Phase 15: ResNet-20's layer shapes through the channel-packed
+    convolution and the diagonal FC layer (models/conv_packed.py) at full
+    width on the q32 plan: phase 13's context (N = 2^16, 60 + 30 limbs,
+    dnum 2), mask scale 2^40, Galois keys without Shoup words (K9) for the
+    56 distinct steps of the four layers.  Each 3 x 3 convolution c -> c at
+    w x w of PACKED_LAYERS (one input and one output ciphertext; the output
+    channels in chunks of the memory rule) on images uniform in [-1, 1) and
+    He-normal filters, and the FC layer 64 -> 10 (rows zero-padded to 16)
+    with a bias, from seeded numpy, through the entry points (PackedConv,
+    zero_pad_encode, eval_convolution, decode_outputs, fc_weight_encode,
+    fully_connected).  Each layer must decode within PACKED_CONV_TOL /
+    PACKED_FC_TOL of numpy float64, and launch K9 once per rotate call.
+    Prints per layer the ms (CUDA events, first run), the rotate calls, the
+    launches of each kernel (counters set to 0 just before), the host
+    seconds spent encoding masks and the peak memory.  A first pass runs
+    with every distinct wrapper call held against its plain version as it
+    comes (recorded_calls); the timed pass after it must equal it, and each
+    kernel's widest call is then timed and bounded (path_checks).  Returns
+    the launch counts of the timed pass."""
+    import torch
+
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.models.conv_packed import (PackedConv, fc_rotation_indices,
+                                                  fc_weight_encode, fully_connected)
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    ctx = dnn_context("q32", RESNET_N, UNIFORM_SINE, (2, 2), RESNET_LEVELS_AFTER, special=15)
+    sk, enc = SecretKey(ctx, seed=2028), CkksEncoder(ctx)
+    pc = PackedConv(ctx, enc, scale=PACKED_SCALE)
+    slots = ctx.n // 2
+    lays = [pc.layout(w, 3) for _, w in PACKED_LAYERS]
+    classes, feats, rows = PACKED_FC
+    steps = set(fc_rotation_indices(rows, feats, slots))
+    for lay in lays:
+        steps |= set(pc.rotation_indices(lay))
+    torch.cuda.synchronize()
+    t1 = time.time()
+    gk = sk.galois_key(sorted(steps))
+    torch.cuda.synchronize()
+    t2 = time.time()
+    key = next(iter(gk.keys.values()))
+    key_gib = sum(k.data.numel() * k.data.element_size() for k in gk.keys.values()) / 2**30
+    log(f"[q32 packed] N=2^{RESNET_N.bit_length() - 1}, {ctx.params.size_Q} + "
+        f"{ctx.params.size_P} limbs, mask scale 2^40: context {t1 - t0:.1f} s; "
+        f"{len(gk.keys)} Galois keys {tuple(key.data.shape)} {key.data.dtype}, Shoup words: "
+        f"{key.shoup is not None}, {key_gib:.2f} GiB, keygen {t2 - t1:.1f} s")
+
+    def low(c):
+        """`c` mod-dropped to 4 limbs (about 2^119, far above the values
+        at scale 2^60), which decrypt and decode in a fraction of the
+        time of the full chain."""
+        while ctx.level(c.chain_index).size > 4:
+            c = ev.mod_drop_to_next(ctx, c)
+        return c
+
+    rng = np.random.default_rng(41)
+    layers = []
+    for (c, w), lay in zip(PACKED_LAYERS, lays):
+        images = rng.uniform(-1, 1, (c, w, w))
+        filt = rng.normal(0.0, math.sqrt(2.0 / (9 * c)), (c, c, 3, 3))
+        din = pc.zero_pad_encode(images, lay, sk)
+        chunks = -(-c // pc.channel_batch(c))
+        rotations = (lay.f_h ** 2 - 1) * len(din) + chunks * (lay.n_i.bit_length() - 1)
+        layers.append(dict(
+            what=f"conv 3x3 {c} -> {c} at {w} x {w} (block {lay.block}, n_i {lay.n_i}, "
+                 f"{chunks} chunks of {pc.channel_batch(c)})",
+            run=lambda filt=filt, din=din, lay=lay: pc.eval_convolution(filt, gk, din, lay),
+            rotations=rotations, tol=PACKED_CONV_TOL,
+            decode=lambda out, lay=lay, c=c: pc.decode_outputs([low(o) for o in out], lay,
+                                                               c, sk),
+            want=ref_conv_same(images, filt)))
+    weight = np.zeros((rows, feats))
+    weight[:classes] = rng.normal(0.0, math.sqrt(1.0 / feats), (classes, feats))
+    x, bias = rng.uniform(-1, 1, feats), rng.uniform(-0.1, 0.1, classes)
+    ct = sk.encrypt_symmetric(enc.encode(np.pad(x, (0, slots - feats)), PACKED_SCALE,
+                                         slots=slots))
+
+    def fc():
+        t = time.perf_counter()
+        diag = fc_weight_encode(enc, weight, PACKED_SCALE)
+        b = enc.encode(np.pad(bias, (0, slots - classes)), fc_output_scale(ctx, ct, diag[0]),
+                       chain_index=2, slots=slots)
+        pc.mask_seconds += time.perf_counter() - t
+        return [fully_connected(ctx, gk, ct, diag, feats, b)]
+
+    def fc_decode(out):
+        return enc.decode(sk.decrypt(low(out[0]))).real[:classes]
+
+    layers.append(dict(what=f"FC {feats} -> {classes} (rows padded to {rows}) with bias",
+                       run=fc, rotations=2 * (rows - 1) + (feats // rows).bit_length() - 1,
+                       tol=PACKED_FC_TOL, decode=fc_decode,
+                       want=weight[:classes] @ x + bias))
+
+    # the first pass: every distinct wrapper call held against its plain
+    # version as it comes
+    calls: dict = {}
+    ck.reset()
+    t0 = time.time()
+    with recorded_calls(calls, ck):
+        held = [layer["run"]() for layer in layers]
+    torch.cuda.synchronize()
+    log(f"[q32 packed] the four layers with each distinct wrapper call held against its "
+        f"plain version as it came: {time.time() - t0:.1f} s")
+
+    total = dict.fromkeys(ck.launches(), 0)
+    for layer, first in zip(layers, held):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        pc.mask_seconds = 0.0
+        ck.reset()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        h0 = time.time()
+        start.record()
+        out = layer["run"]()
+        end.record()
+        end.synchronize()
+        wall = time.time() - h0
+        ms = start.elapsed_time(end)
+        launches = ck.launches()
+        for name, count in launches.items():
+            total[name] += count
+        if not all(torch.equal(a.data, b.data) and _meta(a) == _meta(b)
+                   for a, b in zip(out, first)):
+            fail(f"q32 packed {layer['what']}: the timed run differs from the held run")
+        if launches["key_inner_prod32"] != layer["rotations"]:
+            fail(f"q32 packed {layer['what']}: {launches['key_inner_prod32']} K9 launches "
+                 f"for {layer['rotations']} rotate calls")
+        t0 = time.time()
+        got = layer["decode"](out)
+        dec_s = time.time() - t0
+        if got.shape != layer["want"].shape or not np.all(np.isfinite(got)):
+            fail(f"q32 packed {layer['what']}: decoded {got.shape} (want "
+                 f"{layer['want'].shape}) or non-finite values")
+        err = float(np.max(np.abs(got - layer["want"])))
+        log(f"[q32 packed] {layer['what']}: {ms:.1f} ms (CUDA events, first timed run; host "
+            f"clock {wall:.3f} s, of which encoding masks {pc.mask_seconds:.3f} s), "
+            f"{layer['rotations']} rotate calls, chain index {out[0].chain_index}, peak "
+            f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}; "
+            f"max err {err:.3e} against numpy (limit {layer['tol']}; decode {dec_s:.1f} s); "
+            f"launches {launches}")
+        if not err <= layer["tol"]:
+            fail(f"q32 packed {layer['what']}: max error {err} > {layer['tol']}")
+    ck.require_launched("q32 packed layers", total, ("key_inner_prod_shoup32",))
+    del held
+    path_checks("q32", "packed layers", ck, calls, total)
+    return total
 
 
 # --------------------------------------------------------------------------

@@ -7,11 +7,13 @@ inputs and outputs, and each slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum;
 the FLEXIBLEAUTO ops, raise_mod and a Chebyshev series; the encoder's QlP
 plaintexts) on the card against the same slice on the CPU, and one N = 2^12
-bootstrap, one DNN conv and one batch norm, and BFV's and BGV's multiply
-paths at N = 2^12, through the kernels against the same through the plain
-versions.  Every method of the graph-replaying Evaluator equals the eager
-op through its CUDA graph, at small rings and at 2^15, and raises when its
-capture fails.
+bootstrap, one DNN conv and one batch norm, the packed convolution and the
+diagonal FC layer at N = 2^10, and BFV's and BGV's multiply paths at
+N = 2^12, through the kernels against the same through the plain versions;
+K9 over a chunk of the packed convolution's output channels at N = 2^16.
+Every method of the graph-replaying Evaluator equals the eager op through
+its CUDA graph, at small rings and at 2^15, and raises when its capture
+fails.
 
 A CUDA kernel has no interpret mode, so these tests need an NVIDIA GPU and
 nvcc; without a card they skip.  They import neither jax nor tpu_fhe, so
@@ -1061,6 +1063,101 @@ def test_dnn_conv_and_batch_norm_kernels_equal_plain(gpu, word, monkeypatch):
         assert (g.chain_index, g.scale, g.noise_scale_deg) == \
             (wt.chain_index, wt.scale, wt.noise_scale_deg)
         assert torch.equal(g.data, wt.data)
+
+
+def _dnn_params(word: str, n: int) -> EncryptionParameters:
+    """test_dnn_conv_and_batch_norm_kernels_equal_plain's stack on `word`."""
+    if word == "q32":
+        return EncryptionParameters(
+            SchemeType.ckks, n, tuple(CoeffModulus.create_composite(
+                n, 58, 6, degree=2, anchor_bits=30, special_bits=30, special_count=7)),
+            special_modulus_size=7, composite_degree=2, allow_insecure=True)
+    return EncryptionParameters(
+        SchemeType.ckks, n, tuple(CoeffModulus.create(n, [60] + [59] * 6 + [60] * 3)),
+        special_modulus_size=3, allow_insecure=True)
+
+
+# each kernel wrapper's plain version, by the name the modules call it
+_PLAIN = dict(forward_ntt=ntt.forward_ntt_plain, inverse_ntt=ntt.inverse_ntt_plain,
+              inverse_ntt_scaled=ntt.inverse_ntt_plain,
+              forward_ntt_sub_scale=ntt.forward_ntt_sub_scale_plain,
+              bconv_matmul=bconv.bconv_matmul_plain, bconv_matmul32=bconv.bconv_matmul32_plain,
+              key_inner_prod=ks.key_inner_prod_plain, key_inner_prod32=ks.key_inner_prod32_plain,
+              key_inner_prod_shoup=ks.key_inner_prod_shoup_plain)
+
+
+@pytest.mark.parametrize("word", ["u64", "q32"])
+def test_packed_conv_and_fc_kernels_equal_plain(gpu, word, monkeypatch):
+    """The packed convolution 5 -> 3 at 6 x 6 (the output channels in
+    chunks of 2) and the diagonal FC layer at rows 4, cols 16 at N = 2^10
+    through the kernels equal the same with the evaluator's and the
+    encoder's kernel wrappers swapped for the plain versions, bit for bit,
+    with the same metadata; the plain run launches nothing."""
+    from tpu_fhe_torch.models.conv_packed import (PackedConv, fc_rotation_indices,
+                                                  fc_weight_encode, fully_connected)
+    from tpu_fhe_torch.ops._build import CudaKernel
+    from tpu_fhe_torch.scheme import ckks_encoder
+
+    c = FheContext(_dnn_params(word, 1024), device=gpu)
+    sk, enc = SecretKey(c, seed=8), ckks_encoder.CkksEncoder(c)
+    scale = 2.0 ** 40 if word == "q32" else 2.0 ** 59
+    pc = PackedConv(c, enc, scale=scale, channel_batch=2)
+    lay = pc.layout(6, 3)
+    slots = c.n // 2
+    gk = sk.galois_key(sorted(set(pc.rotation_indices(lay))
+                              | set(fc_rotation_indices(4, 16, slots))))
+    rng = np.random.default_rng(9)
+    filt = rng.uniform(-0.5, 0.5, (3, 5, 3, 3))
+    din = pc.zero_pad_encode(rng.uniform(-1, 1, (5, 6, 6)), lay, sk)
+    weight = rng.uniform(-1, 1, (4, 16))
+    ct = sk.encrypt_symmetric(enc.encode(np.pad(rng.uniform(-1, 1, 16), (0, slots - 16)),
+                                         scale, slots=slots))
+
+    def run():
+        return pc.eval_convolution(filt, gk, din, lay) + [
+            fully_connected(c, gk, ct, fc_weight_encode(enc, weight, scale), 16)]
+
+    got = run()
+    for mod in (ev, ckks_encoder):
+        for name, fn in _PLAIN.items():
+            if hasattr(mod, name):
+                monkeypatch.setattr(mod, name, fn)
+    kernels = [k for mod in (ntt, bconv, ks) for k in vars(mod).values()
+               if isinstance(k, CudaKernel)]
+    for k in kernels:
+        k.launches = 0
+    want = run()
+    torch.cuda.synchronize()
+    assert {k.name: k.launches for k in kernels if k.launches} == {}, \
+        "the run through the plain versions launched kernels"
+    for g, wt in zip(got, want):
+        assert (g.chain_index, g.scale, g.noise_scale_deg) == \
+            (wt.chain_index, wt.scale, wt.noise_scale_deg)
+        assert torch.equal(g.data, wt.data)
+
+
+def test_batched_k9_at_the_packed_chunk_shape(gpu):
+    """K9 on t (16, 2, 89, 2^16): a chunk of 16 output channels of the
+    packed convolution's collapse rotations, after its first rescale
+    (chain index 2), on chip_smoke.py's phase-15 context
+    (create_composite(2^16, 58, 29, ...): 60 + 30 limbs, dnum 2), in one
+    launch, equal to its plain version."""
+    n = 1 << 16
+    c = FheContext(EncryptionParameters(
+        SchemeType.ckks, n, tuple(CoeffModulus.create_composite(
+            n, 58, 29, degree=2, anchor_bits=30, special_bits=30, special_count=30)),
+        special_modulus_size=30, composite_degree=2, allow_insecure=True), device=gpu)
+    kst, kq = c.level(2).ks, c.key_level.mod
+    qlp = kst.qlp_mod
+    assert (c.level(2).size, kst.beta, qlp.q.shape[0]) == (59, 2, 89)
+    evk = _res32(c, kq.q, 2, 2, seed=1)
+    t = _res32(c, qlp.q, 16, kst.beta, seed=2)
+    args = (t, evk, kst.qlp_key_rows, qlp.q, qlp.fold)
+    before = ks.KS32.launches
+    got = ks.key_inner_prod32(*args)
+    assert ks.KS32.launches - before == 1
+    assert got.shape == (16, 2, 89, n)
+    assert torch.equal(got, ks.key_inner_prod32_plain(*args))
 
 
 @pytest.mark.parametrize("case", ["bfv behz", "bfv hps", "bgv behz"])

@@ -4,9 +4,11 @@ plan's modules alike, the rotation path of ops/galois.py and
 eval/hoisting.py, the evaluation layer of eval/auto.py, eval/chebyshev.py
 and eval/jit.py, the bootstrap of boot/boot_math.py and boot/bootstrap.py
 with the encoder's QlP forms, and the PPML layers and ResNet-20 of
-models/dnn.py, models/resnet20.py and utils/timer.py, and BFV and BGV with
-the batch encoder, and the serializer of utils/serialize.py with a
-channel batch through the evaluator) run with both blocked."""
+models/dnn.py, models/resnet20.py and utils/timer.py, the channel-packed
+convolution and diagonal FC layer of models/conv_packed.py, and BFV and
+BGV with the batch encoder, and the serializer of utils/serialize.py with
+a channel batch through the evaluator) run with both blocked; the module
+walk imports every module of the package, models/conv_packed.py too."""
 
 import re
 import subprocess
@@ -323,3 +325,50 @@ def test_serialization_and_batching_run_with_jax_blocked():
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.rstrip().endswith("OK")
+
+
+def test_packed_conv_and_fc_run_with_jax_blocked():
+    """models/conv_packed.py on the CPU (a q32 context at N = 512): the
+    packed convolution 5 -> 3 at 6 x 6, its output channels in chunks of 2
+    equal to one at a time, decoding within 1e-3 of numpy, and the diagonal
+    FC layer within 1e-4, with jax and tpu_fhe blocked."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "import numpy as np, torch\n"
+        "from tpu_fhe_torch.core.modulus import CoeffModulus\n"
+        "from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType\n"
+        "from tpu_fhe_torch.models.conv_packed import (PackedConv, fc_rotation_indices,\n"
+        "    fc_weight_encode, fully_connected)\n"
+        "from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder\n"
+        "from tpu_fhe_torch.scheme.context import FheContext\n"
+        "from tpu_fhe_torch.scheme.keys import SecretKey\n"
+        "n = 512\n"
+        "mods = CoeffModulus.create_composite(n, 58, 3, degree=2, anchor_bits=30,\n"
+        "                                     special_bits=30, special_count=4)\n"
+        "ctx = FheContext(EncryptionParameters(SchemeType.ckks, n, tuple(mods),\n"
+        "    special_modulus_size=4, composite_degree=2, allow_insecure=True), device='cpu')\n"
+        "sk, enc = SecretKey(ctx, seed=3), CkksEncoder(ctx)\n"
+        "rng = np.random.default_rng(4)\n"
+        "images, filt = rng.uniform(-1, 1, (5, 6, 6)), rng.uniform(-.5, .5, (3, 5, 3, 3))\n"
+        "pc, one = PackedConv(ctx, enc, channel_batch=2), PackedConv(ctx, enc, channel_batch=1)\n"
+        "lay = pc.layout(6, 3)\n"
+        "gk = sk.galois_key(sorted(set(pc.rotation_indices(lay))\n"
+        "                          | set(fc_rotation_indices(4, 16, n // 2))))\n"
+        "din = pc.zero_pad_encode(images, lay, sk)\n"
+        "out = pc.eval_convolution(filt, gk, din, lay)\n"
+        "for a, b in zip(out, one.eval_convolution(filt, gk, din, lay)):\n"
+        "    assert torch.equal(a.data, b.data) and a.chain_index == b.chain_index\n"
+        "pad = np.pad(images, ((0, 0), (1, 1), (1, 1)))\n"
+        "want = sum(np.einsum('kc,cij->kij', filt[:, :, i, j], pad[:, i:i + 6, j:j + 6])\n"
+        "           for i in range(3) for j in range(3))\n"
+        "assert np.max(np.abs(pc.decode_outputs(out, lay, 3, sk) - want)) < 1e-3\n"
+        "w, x = rng.uniform(-1, 1, (4, 16)), rng.uniform(-1, 1, 16)\n"
+        "ct = sk.encrypt_symmetric(enc.encode(np.pad(x, (0, n // 2 - 16)), 2.0 ** 40))\n"
+        "y = fully_connected(ctx, gk, ct, fc_weight_encode(enc, w, 2.0 ** 40), 16)\n"
+        "assert np.max(np.abs(enc.decode(sk.decrypt(y)).real[:4] - w @ x)) < 1e-4\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

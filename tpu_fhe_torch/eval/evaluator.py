@@ -117,7 +117,11 @@ def square(ctx: FheContext, a: Ciphertext) -> Ciphertext:
 
 
 def multiply_plain(ctx: FheContext, a: Ciphertext, pt: Plaintext) -> Ciphertext:
-    data = ctx.level(a.chain_index).mod.mul(a.data, pt.data[None])
+    """Both components times the plaintext.  The plaintext's (L, N) planes
+    broadcast from the end, so one (L, N) plaintext multiplies any batch,
+    and a stacked (B, L, N) one multiplies a (B, 2, L, N) batch channel by
+    channel."""
+    data = ctx.level(a.chain_index).mod.mul(a.data, pt.data.unsqueeze(-3))
     return replace(a, data=data, scale=a.scale * pt.scale,
                    noise_scale_deg=a.noise_scale_deg + pt.noise_scale_deg)
 

@@ -132,6 +132,29 @@ def _residues(ctx: FheContext, arr: np.ndarray) -> torch.Tensor:
     return (mm.u32_tensor if ctx.is_q32 else mm.u64_tensor)(arr, ctx.device)
 
 
+def batch_budget(ctx: FheContext) -> int:
+    """Bytes a channel batch may take: CUDA_BATCH_SHARE of the card's
+    memory on a CUDA context, the reference's CPU_BATCH_BUDGET on the
+    CPU."""
+    dev = ctx.device
+    if dev.type == "cuda":
+        return int(CUDA_BATCH_SHARE * torch.cuda.get_device_properties(dev).total_memory)
+    return CPU_BATCH_BUDGET
+
+
+def channel_batch(ctx: FheContext, n_ch: int, forced: int | None = None) -> int:
+    """Channels per chunk: `forced` (at most n_ch), else the largest power
+    of two <= min(n_ch, 64, budget // (10 (size_Ql + size_P) N 8)), the
+    reference's rule (about 10 extended-basis copies of a channel in a
+    hoisted BSGS level).  The DNN's layers and the packed convolution's
+    output channels take it."""
+    if forced is not None:
+        return max(1, min(n_ch, int(forced)))
+    per_ch = 10 * (ctx.level(1).size + ctx.params.size_P) * ctx.n * 8
+    b = max(1, min(n_ch, MAX_CHANNEL_BATCH, batch_budget(ctx) // per_ch))
+    return 1 << (b.bit_length() - 1)
+
+
 class DNN:
     """Encrypted-inference layer library bound to one context and encoder."""
 
@@ -149,25 +172,10 @@ class DNN:
         self._pt_cache: dict = {}
 
     def batch_budget(self) -> int:
-        """Bytes the channel batch may take: CUDA_BATCH_SHARE of the card's
-        memory on a CUDA context, the reference's CPU_BATCH_BUDGET on the
-        CPU."""
-        dev = self.ctx.device
-        if dev.type == "cuda":
-            return int(CUDA_BATCH_SHARE * torch.cuda.get_device_properties(dev).total_memory)
-        return CPU_BATCH_BUDGET
+        return batch_budget(self.ctx)
 
     def channel_batch(self, n_ch: int) -> int:
-        """Channels per chunk: the forced value (at most n_ch), else the
-        largest power of two <= min(n_ch, 64, budget // (10 (size_Ql +
-        size_P) N 8)), the reference's rule (about 10 extended-basis copies
-        of a channel in a hoisted BSGS level)."""
-        if self.forced_batch is not None:
-            return max(1, min(n_ch, int(self.forced_batch)))
-        ctx = self.ctx
-        per_ch = 10 * (ctx.level(1).size + ctx.params.size_P) * ctx.n * 8
-        b = max(1, min(n_ch, MAX_CHANNEL_BATCH, self.batch_budget() // per_ch))
-        return 1 << (b.bit_length() - 1)
+        return channel_batch(self.ctx, n_ch, self.forced_batch)
 
     def _map_cts(self, fn, *lists: list[Ciphertext]) -> list[Ciphertext]:
         """fn over the channels of equal-length lists, one chunk of

@@ -2,8 +2,9 @@
 
 Port of the default host path of ``tpu_fhe/scheme/ckks_encoder.py``: the
 complex transform runs on the host in float64 through an FFT of size 2N;
-the rounded coefficients are RNS-decomposed on the host and the forward
-NTT runs on the context's device.  Plaintexts are in the context's word:
+the rounded coefficients are copied to the context's device once and
+reduced mod each prime there (exact Python integers on the host past
+2^62), and the forward NTT runs on the device.  Plaintexts are in the context's word:
 int32 on a q32 context (the reference's compact plaintexts,
 ``tpu_fhe/scheme/ckks_encoder.py:198-203``), int64 otherwise.  Decode is the inverse chain, with the
 CRT composition in exact Python integers (seconds at N = 2^15 and 30 limbs).
@@ -44,6 +45,7 @@ class CkksEncoder:
         self.slots = self.n // 2
         self._rot_cache: dict[int, np.ndarray] = {}
         self._ext_cache: dict = {}
+        self._q_cache: dict = {}
         self.rot_group = self._rot_group_for(self.n)
 
     def _rot_group_for(self, n_ring: int) -> np.ndarray:
@@ -115,14 +117,30 @@ class CkksEncoder:
         amax = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
         if int(amax).bit_length() + 2 >= level.base.big_modulus.bit_length():
             raise ValueError("encoded values are too large for the modulus")
-        return Plaintext(data=forward_ntt(self._word(_round_decompose(coeffs, level.base)),
-                                          level.ntt),
+        return Plaintext(data=forward_ntt(self._residues(coeffs, level.base), level.ntt),
                          chain_index=chain_index, scale=scale)
 
-    def _word(self, residues: np.ndarray) -> torch.Tensor:
-        """uint64 residues as a tensor in the context's word on its device."""
-        word = u32_tensor if self.context.is_q32 else u64_tensor
-        return word(residues, self.context.device)
+    def _residues(self, coeffs: np.ndarray, base: RNSBase) -> torch.Tensor:
+        """round(float64 coeffs) (..., N) -> their (..., L, N) residues mod
+        each prime of `base`, in the context's word on its device.  A
+        float64's integer value is exact, so for |c| < 2^62 the round lands
+        exactly in int64: one host-to-device copy, then floor-mod on the
+        device.  Larger coefficients take _round_decompose's exact Python
+        integers on the host."""
+        ctx = self.context
+        amax = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
+        if amax >= float(1 << 62):
+            flat = coeffs.reshape(-1, coeffs.shape[-1])
+            planes = np.stack([_round_decompose(c, base) for c in flat])
+            word = u32_tensor if ctx.is_q32 else u64_tensor
+            return word(planes.reshape(coeffs.shape[:-1] + planes.shape[1:]), ctx.device)
+        primes = self._q_cache.get(base.values)
+        if primes is None:
+            primes = self._q_cache[base.values] = torch.tensor(
+                base.values, dtype=torch.int64, device=ctx.device).unsqueeze(-1)
+        x = torch.from_numpy(np.rint(coeffs).astype(np.int64)).to(ctx.device)
+        res = torch.remainder(x.unsqueeze(-2), primes)
+        return res.to(torch.int32) if ctx.is_q32 else res
 
     def encode_ext(self, values, scale: float, chain_index: int = 1,
                    slots: int | None = None, noise_scale_deg: int = 1) -> Plaintext:
@@ -165,15 +183,21 @@ class CkksEncoder:
         and forward-NTT, all rows in one host-to-device copy and one batched
         NTT.  With `ext` at the extended basis QlP (for multiplying hoisted
         ciphertexts), else at the level's basis."""
+        poly = self.encode_coeff_poly(rows, scale, chain_index, ext)
+        return [Plaintext(data=poly[i], chain_index=chain_index, scale=scale,
+                          noise_scale_deg=noise_scale_deg) for i in range(poly.shape[0])]
+
+    def encode_coeff_poly(self, rows, scale: float, chain_index: int,
+                          ext: bool = False) -> torch.Tensor:
+        """encode_coeff_rows' planes as one (R, L, N) NTT-form tensor, row r
+        the plaintext data of rows[r]."""
         if ext:
             base, ntt = self._ext_tables(chain_index)
         else:
             level = self.context.level(chain_index)
             base, ntt = level.base, level.ntt
-        planes = np.stack([_round_decompose(np.asarray(r) * scale, base) for r in rows])
-        poly = forward_ntt(self._word(planes), ntt)
-        return [Plaintext(data=poly[i], chain_index=chain_index, scale=scale,
-                          noise_scale_deg=noise_scale_deg) for i in range(len(planes))]
+        coeffs = np.stack([np.asarray(r) * scale for r in rows])
+        return forward_ntt(self._residues(coeffs, base), ntt)
 
     def decode(self, pt: Plaintext, slots: int | None = None) -> np.ndarray:
         level = self.context.level(pt.chain_index)
@@ -198,17 +222,11 @@ def _host_embed_inverse(values: np.ndarray, n_ring: int,
 
 
 def _round_decompose(coeffs: np.ndarray, base: RNSBase) -> np.ndarray:
-    """round(float64 coeffs) -> (L, N) uint64 residue planes.  A float64's
-    integer value is exact, so for |c| < 2^62 the round lands exactly in
-    int64; larger coefficients take exact Python integers."""
-    amax = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
-    out = np.empty((len(base), len(coeffs)), dtype=np.uint64)
-    if amax < float(1 << 62):
-        ri = np.rint(coeffs).astype(np.int64)
-        for i, q in enumerate(base.values):
-            out[i] = (ri % np.int64(q)).astype(np.uint64)
-        return out
+    """round(float64 coeffs) -> (L, N) uint64 residue planes, in exact
+    Python integers: the encoder's path for coefficients of 2^62 and more,
+    which int64 cannot hold."""
     rounded = np.array([int(round(float(c))) for c in coeffs], dtype=object)
+    out = np.empty((len(base), len(coeffs)), dtype=np.uint64)
     for i, q in enumerate(base.values):
         out[i] = (rounded % q).astype(np.uint64)
     return out
