@@ -32,8 +32,9 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     with the Landing epilogue; q32: K5 at (59, 2^15) scaled inv_cluster,
     K6 at (2, 59, 2^15) fwd_cluster with the Landing epilogue; a profile
     that lost events is taken again, up to 3 in all); on the u64
-    plan K11 (the SIMT kernel, off the path since K12 takes k < 64) at 64
-    -> 30 and, called directly, at 15 -> 30; on the q32 plan also K4 and
+    plan K11 (K12's tensor-core form in chunks of 64 inputs, off the path
+    since K12 takes k < 64) through the wrapper at 64 -> 30 and called
+    directly at 15 -> 30; on the q32 plan also K4 and
     K5 against K1 and K2 on the same 30-bit moduli, and torch._int_mm on
     bconv32's int8 operands as a yardstick of its product part; and, once
     phases 3 to 6 of both plans are done (after every one-launch profile),
@@ -47,7 +48,11 @@ q32 plan of composite scaling (N = 2^15, CoeffModulus.create_composite with
     bytes counted once in the bound: K8 and K7 on t (4, 2, 39) of the
     flagship's tables, K10 and K9 on t (16, 2, 90) of the ResNet-20
     inference's (phase 13's context), with the per-thread batch and
-    ptxas's registers and spills of each instantiation;
+    ptxas's registers and spills of each instantiation; and K9 at the
+    other shapes its paths record on that context: t (2, 90) (a ResNet
+    convolution's rotation), (16, 2, 89) (a packed convolution's chunk at
+    chain index 2) and (17, 2, 90) (a batch that is not a multiple of 2);
+    and K11 through the wrapper at 2^16 at (2, 127) -> 32 and 190 -> 63;
  4. requests: keys, then 4 requests of encode -> encrypt (symmetric and
     asymmetric) -> multiply -> relinearize -> rescale (rescale_composite by
     a prime pair on the q32 plan) -> decrypt -> decode, each within 1e-6 of
@@ -273,6 +278,12 @@ BCONV_FORMS = {4: (4, 23), 8: (8, 70)}   # word: digit planes, IMADs per output
 # ResNet-20 inference's (phase 13's context), each at the batch its path gives
 KS_BATCH = {"u64": 4, "q32": 16}
 BUILD_LOGS: dict = {}                    # nvcc's output by source (phase 2)
+# the fills that lead every profiler window (device_kernels), by dtype and
+# by the name of the dtype in the fill kernel's name, and a tally of them
+MARKER_DTYPES = ("int8", "int16", "int32", "int64", "uint8", "float16", "bfloat16", "float32")
+MARKER_NAMES = ("signed char", "short", "int", "long", "unsigned char", "c10::Half",
+                "c10::BFloat16", "float")
+MARKERS: dict = {"windows": 0, **{f"lost {name}": 0 for name in MARKER_NAMES}}
 
 
 def log(*a):
@@ -352,15 +363,17 @@ def ks_cost(shoup: bool, word: int, batch: int, beta: int, L: int, n: int = N) -
 
 
 def ks_ptxas(log_text: str) -> list[str]:
-    """ptxas's registers and spills of each K7-K10 instantiation (per-thread
-    batch BT), from nvcc's -Xptxas -v output of ks.cu."""
+    """ptxas's registers and spills of each K7-K10 instantiation (K7, K8,
+    K10 per per-thread batch BT; K9 per unrolled beta, 0 the runtime loop),
+    from nvcc's -Xptxas -v output of ks.cu."""
     out, name = [], None
     for line in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"(ks32_kernel|ks_shoup_kernel|ks_kernel)I(j|y)?Li(\d+)E", m.group(1))
             name = None if k is None else (
-                f"{k.group(1)}<{dict(j='u32, ', y='u64, ').get(k.group(2), '')}BT={k.group(3)}>")
+                f"{k.group(1)}<{dict(j='u32, ', y='u64, ').get(k.group(2), '')}"
+                f"{'BETA' if k.group(1) == 'ks32_kernel' else 'BT'}={k.group(3)}>")
         elif name and "spill" in line:
             out.append(f"{name}: {line.strip()}")
         elif name and "registers" in line:
@@ -414,6 +427,7 @@ def main() -> int:
     t0 = time.time()
     for plan in plans:
         boot_path_checks(plan["tag"], plan["ck"])
+    k11_wide_checks(plans[0]["ck"])
     seconds["3 (2^16)"] = time.time() - t0
     # -- 7.-9. on both plans, after phases 3-6 of both: these phases' profiles
     # hold many events, and a profiler window late in a process can lose
@@ -481,6 +495,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     seconds["15"] = time.time() - t0
     log("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
+    log(f"[profile] the fills leading each window: {MARKERS}")
     line = []
     for plan in plans:
         line += plan["ck"].line({name: count + plan["emod"][name] + plan["raised"][name]
@@ -579,10 +594,10 @@ def ntt_cost(word: int, rows: int, limbs: int, extra_muls: int = 0, tables: int 
     return nbytes, imads
 
 
-def simt_bconv(s, table, p, ratio_lo, ratio_hi):
+def direct_bconv(s, table, p, ratio_lo, ratio_hi, diag):
     """K11's kernel at any k, called directly (the wrapper takes K12 for
-    k < 64): s (k, N) int64 residues, the table (m, k) and p and its Barrett
-    words (m, 1), all on the card."""
+    k < 64): s (k, N) int64 residues, the table (m, k), p and its Barrett
+    words (m, 1) and the table's digit matrix, all on the card."""
     import torch
 
     from tpu_fhe_torch.ops import bconv
@@ -590,9 +605,42 @@ def simt_bconv(s, table, p, ratio_lo, ratio_hi):
 
     (k, n), m = s.shape, table.shape[0]
     out = torch.empty((m, n), dtype=torch.int64, device=s.device)
-    bconv.BCONV(ptr(s), ptr(out), *(ptr(c.contiguous()) for c in (table, p, ratio_lo, ratio_hi)),
-                1, k, m, n)
+    bconv.BCONV(ptr(s), ptr(out), ptr(diag), *(ptr(c.contiguous()) for c in (p, ratio_lo,
+                                                                           ratio_hi)),
+                1, k, m, n, 0, k, 0)
     return out
+
+
+def k11_wide_checks(ck: "Checker") -> None:
+    """K11 through the wrapper at 2^16 on sums of more than one 64-input
+    chunk: (2, 127) -> 32 and 190 -> 63, on 59-bit input residues (32
+    primes repeated: a chain holds at most 64 primes above 30 bits) and
+    60-bit output primes.  Like every 2^16 check, it runs after the
+    one-launch profiles of both plans."""
+    import torch
+
+    from tpu_fhe_torch.core.modulus import CoeffModulus
+    from tpu_fhe_torch.ops import bconv, modarith as mm
+
+    n, dev = 1 << 16, torch.device("cuda")
+    residues = residue_maker(dev, n, 2127)
+    gen = torch.Generator(device=dev).manual_seed(127)
+    q_in = mm.u64_tensor(np.array([[m.value] for m in CoeffModulus.create(n, [59] * 32)],
+                                  dtype=np.uint64), dev).repeat(6, 1)
+    for lead, k, m in (((2,), 127, 32), ((), 190, 63)):
+        mods = CoeffModulus.create(n, [60] * m)
+        p, rlo, rhi = (mm.u64_tensor(np.array([[f(mo)] for mo in mods], dtype=np.uint64), dev)
+                       for f in (lambda mo: mo.value, lambda mo: mo.const_ratio[0],
+                                 lambda mo: mo.const_ratio[1]))
+        table = torch.randint(0, 1 << 62, (m, k), generator=gen, dtype=torch.int64,
+                              device=dev) % p
+        tab = (table, p, rlo, rhi, bconv.digit_matrix(table))
+        x = residues(q_in[:k], *lead)
+        rows = lead[0] if lead else 1
+        ck.check("bconv", f"{k} -> {m}, ({', '.join(map(str, lead + (k,)))}, 2^16)",
+                 lambda: bconv.bconv_matmul(x, *tab), lambda: bconv.bconv_matmul_plain(x, *tab),
+                 **bconv_cost(8, rows, k, m, n))
+        del x, table, tab
 
 
 def int_mm_yardstick(k: int, m: int, card: str) -> None:
@@ -712,19 +760,20 @@ def u64_slice(card: str) -> dict:
             kst.p_hat_mod_q_diag)
     ck.check("bconv_mxu", "15 -> 30, (2, 15, 2^15)", lambda: bconv.bconv_matmul(s2, *mtab),
              lambda: bconv.bconv_matmul_plain(s2, *mtab), **bconv_cost(8, 2, P, L))
-    # K11, the SIMT kernel: the wrapper's choice from k = 64 inputs on (the
-    # key level's 45 moduli and 19 of them again, into the level's 30),
-    # and at the path's 15 -> 30 through a direct call
+    # K11: the wrapper's choice from k = 64 inputs on (the key level's 45
+    # moduli and 19 of them again, into the level's 30), and at the path's
+    # 15 -> 30 through a direct call
     s64 = residues(torch.cat([ctx.key_level.mod.q] * 2)[:64])
     gen = torch.Generator(device=ctx.device).manual_seed(64)
     wide = torch.randint(0, 1 << 62, (L, 64), generator=gen, dtype=torch.int64,
                          device=ctx.device) % level.mod.q
-    wtab = (wide, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi)
+    wtab = (wide, level.mod.q, level.mod.ratio_lo, level.mod.ratio_hi, bconv.digit_matrix(wide))
     ck.check("bconv", "64 -> 30, (64, 2^15)", lambda: bconv.bconv_matmul(s64, *wtab),
              lambda: bconv.bconv_matmul_plain(s64, *wtab), **bconv_cost(8, 1, 64, L))
     ck.check("bconv", "15 -> 30, (15, 2^15), direct call",
-             lambda: simt_bconv(s, *btab[:4]), lambda: bconv.bconv_matmul_plain(s, *btab),
+             lambda: direct_bconv(s, *btab), lambda: bconv.bconv_matmul_plain(s, *btab),
              **bconv_cost(8, 1, k_in, m_out), headline=True)
+    del s64, wide, wtab
     beta = kst.beta
     qlp = kst.qlp_mod
     t = residues(qlp.q, beta)
@@ -747,7 +796,7 @@ def u64_slice(card: str) -> dict:
              lambda: ks.key_inner_prod_plain(t, gkey, *kargs),
              8 * N * (beta * (L + P) + 2 * beta * (L + P) + 2 * (L + P)),
              2 * (L + P) * N * (2 * beta + 6) * IMAD_PER_MUL64, headline=True)
-    del x, x2, sub, xs, xp, s, s2, s64, wide, t, evk, evk_s, gkey
+    del x, x2, sub, xs, xp, s, s2, t, evk, evk_s, gkey
 
     # -- 4. the slice: keys, then REQUESTS requests ---------------------
     launches, products, rlk, sk = run_requests("u64", ctx, ck, SCALE,
@@ -1059,24 +1108,35 @@ def keyswitch_timing(tag: str, where: str, ctx, ct3, rlk, ck: Checker, card: str
 def device_kernels(run) -> list:
     """torch.profiler's device kernels (key_averages) over `run()`, device
     activity only, so that host tracing does not stretch the window.  A
-    profiler window after the first in a process can miss its first device
-    kernel (seen on the H100: 9 of 10 launches of one kernel), so a fill of
-    one byte and a synchronize lead the window; the fill is not counted (no
-    profiled operation fills memory).  Later windows of a long process can
-    still lose events (whole operations, seen on the H100), which
-    profile_ops flags."""
+    profiler window after the first in a process can miss the kernels it
+    sees first (seen on the H100: the first port kernel of a window, 9 of
+    10 launches, or the first nodes of a graph replay, while a single
+    one-byte fill led the window; with three fills leading it, 9 of 23
+    windows of one run lost all three).  So eight fills of distinct dtypes
+    lead the window, each synchronized and 20 ms apart on the host; they
+    are not counted (no profiled operation fills memory), and MARKERS
+    tallies which of them the profiler missed.  A window that still loses
+    events is flagged by profile_ops and taken again by the gated
+    callers."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    marker = torch.zeros(1, dtype=torch.int8, device="cuda")
+    markers = [torch.zeros(1, dtype=getattr(torch, dt), device="cuda") for dt in MARKER_DTYPES]
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        marker.fill_(1)
-        torch.cuda.synchronize()
+        for i, marker in enumerate(markers):
+            if i:
+                time.sleep(0.02)
+            marker.fill_(1)
+            torch.cuda.synchronize()
         run()
-    return [e for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and "FillFunctor" not in e.key]
+    events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    MARKERS["windows"] += 1
+    for name in MARKER_NAMES:
+        if not any(f"FillFunctor<{name}>" in e.key for e in events):
+            MARKERS[f"lost {name}"] += 1
+    return [e for e in events if "FillFunctor" not in e.key]
 
 
 def profile_ops(tag: str, fn, what: str, reps: int = 10) -> None:
@@ -1803,13 +1863,31 @@ def boot_path_checks(tag: str, ck: Checker) -> None:
         evk = residues(kq.q, dnum, 2)
     t = residues(kst.qlp_mod.q, batch, beta)
     bt = _build.load("ks.cu").tfhe_ks_per_thread(batch)
-    log(f"[{tag} kernels] K7-K10 over a batch of {batch}: {bt} ciphertexts per thread, "
-        f"grid.z {-(-batch // bt)}, one launch; ptxas (ks.cu): "
+    log(f"[{tag} kernels] K7-K10 over a batch of {batch}, one launch: K7, K8, K10 {bt} "
+        f"ciphertexts per thread, grid.z {-(-batch // bt)}; K9 a thread's key words once, the "
+        f"whole batch walked; ptxas (ks.cu): "
         + ("; ".join(ks_ptxas(BUILD_LOGS.get("ks.cu", ""))) or "not rebuilt in this run"))
     ks_checks(ck, kst, kq, t, evk,
               f"t ({batch}, {beta}, {qlp_n}, {sfx}), key ({dnum}, 2, {kq.q.shape[0]}, {sfx}), "
               f"{'ResNet-20' if q32 else 'flagship'} chain index 1")
-    del t, evk, ctx
+    del t
+    if q32:
+        # K9 at the other shapes its paths record on this context: one
+        # ResNet convolution's rotation, a packed convolution's chunk at
+        # chain index 2, and a batch of 17
+        for lead, ci in (((), 1), ((16,), 2), ((17,), 1)):
+            kl = ctx.level(ci).ks
+            qlp, rows = kl.qlp_mod, kl.qlp_key_rows
+            t = residues(qlp.q, *lead, kl.beta)
+            bt, L = (lead[0] if lead else 1), qlp.q.shape[0]
+            ck.check("key_inner_prod32",
+                     f"t ({', '.join(map(str, lead + (kl.beta, L)))}, {sfx}), key ({dnum}, 2, "
+                     f"{kq.q.shape[0]}, {sfx}), ResNet-20 chain index {ci}",
+                     lambda: ks.key_inner_prod32(t, evk, rows, qlp.q, qlp.fold),
+                     lambda: ks.key_inner_prod32_plain(t, evk, rows, qlp.q, qlp.fold),
+                     **ks_cost(False, 4, bt, kl.beta, L, n))
+            del t
+    del evk, ctx
     log(f"[{tag} kernels] the flagship's shapes checked in {time.time() - t0:.1f} s")
 
 

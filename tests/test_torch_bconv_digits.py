@@ -6,14 +6,19 @@ numpy), the kernels' fragment orders of the digit matrices, and the
 kernels' arithmetic (digit planes, s32 diagonal products, the reassembly
 and the landing) against the plain versions, bit for bit: K13's
 ``bconv_matmul32_digits_plain`` against ``bconv_matmul32_plain`` and K12's
-``bconv_matmul_digits_plain`` against ``bconv_matmul_plain``.  One case
-holds the port against the reference's XLA form of K12
-(tpu_fhe/ops/bconv_mxu.py bconv_matmul_mxu) on the same inputs."""
+and K11's ``bconv_matmul_digits_plain`` against ``bconv_matmul_plain``.
+One case holds the port against the reference's XLA form of K12
+(tpu_fhe/ops/bconv_mxu.py bconv_matmul_mxu) on the same inputs, and the
+k >= 64 cases (K11's chunks of 64 inputs) against the reference's
+bconv_matmul, whose chunked 128-bit XLA sum serves k >= 64 on the CPU."""
+
+import functools
 
 import numpy as np
 import pytest
 import torch
 
+from tpu_fhe.ops.bconv import bconv_matmul as ref_bconv_matmul
 from tpu_fhe.ops.bconv_mxu import _balanced_digits_host, bconv_matmul_mxu
 from tpu_fhe.ops.bconv_mxu_pallas import _diag_matrix_jk, _diag_matrix_jk32
 from tpu_fhe.ops.w64 import W64
@@ -206,3 +211,59 @@ def test_digits_u64_match_reference_xla_form():
     for fn in (bconv.bconv_matmul_plain, bconv.bconv_matmul_digits_plain):
         got = fn(scaled, table, pt, rlot, rhit, diag)
         np.testing.assert_array_equal(got.numpy().view(np.uint64), want)
+
+
+# -- K11: k >= 64 inputs in chunks of 64 ---------------------------------------
+
+K11_M = 63      # every case's outputs are the first m of 63 rows and moduli
+
+
+@functools.lru_cache(maxsize=None)
+def _k11_case(k: int):
+    """Batch-2 inputs below 59-bit input primes (32 primes repeated: a chain
+    holds at most 64 above 30 bits), a (63, k) table below 60-bit output
+    primes with their Barrett words, and the reference's bconv_matmul of
+    them (its XLA route: 128-bit sums in chunks of 63), all numpy."""
+    rng = np.random.default_rng(1000 + k)
+    q_in = np.tile(_moduli64(32)[0], (-(-k // 32), 1))[:k]
+    p, rlo, rhi = _moduli64(K11_M, 60)
+    s = rng.integers(0, 2**62, size=(2, k, N), dtype=np.uint64) % q_in
+    tab = rng.integers(0, 2**62, size=(K11_M, k), dtype=np.uint64) % p
+    want = ref_bconv_matmul(W64.from_np(s), tab, p, rlo, rhi).to_np()
+    return s, tab, p, rlo, rhi, want
+
+
+@pytest.mark.parametrize("m", [1, 30, 63])
+@pytest.mark.parametrize("k", [64, 65, 100, 127, 130])
+def test_digits_plain_k11_equals_plain_and_reference(k, m):
+    """K11's arithmetic (digit planes, each 64-input chunk's diagonal sums
+    reassembled into 128 bits and landed, the chunks summed mod p) equals
+    bconv_matmul_plain and the reference's bconv_matmul bit for bit at
+    N = 64, batch 2: k one chunk (64), a chunk and one input (65), ragged
+    last chunks (100, 127) and three chunks (130), into m = 1, 30 and 63."""
+    s, tab, p, rlo, rhi, want = _k11_case(k)
+    scaled, table, pt, rlot, rhit = _tensors(s, tab[:m], p[:m], rlo[:m], rhi[:m])
+    diag = bconv.digit_matrix(table)
+    assert diag.shape == bconv.digit_matrix_shape(m, k)
+    got = bconv.bconv_matmul_digits_plain(scaled, table, pt, rlot, rhit, diag)
+    assert got.dtype == torch.int64 and got.shape == (2, m, N)
+    assert torch.equal(got, bconv.bconv_matmul_plain(scaled, table, pt, rlot, rhit))
+    np.testing.assert_array_equal(got.numpy().view(np.uint64), want[:, :m])
+
+
+def test_digits_plain_k11_chunk_at_its_bound():
+    """Two chunks of 64 inputs at the kernel's range: every input and table
+    entry 2^61 - 1, so each chunk's row sum is 64 (2^61 - 1)^2, just below
+    2^128; the chunked arithmetic equals the exact sum mod p (Python
+    integers)."""
+    k, m, n = 128, 2, 8
+    p, rlo, rhi = _moduli64(m, 60)
+    top = np.uint64(2**61 - 1)
+    s = np.full((k, n), top, dtype=np.uint64)
+    tab = np.full((m, k), top, dtype=np.uint64)
+    scaled, table, pt, rlot, rhit = _tensors(s, tab, p, rlo, rhi)
+    got = bconv.bconv_matmul_digits_plain(scaled, table, pt, rlot, rhit,
+                                          bconv.digit_matrix(table))
+    want = [k * (2**61 - 1) ** 2 % int(q) for q in p[:, 0]]
+    np.testing.assert_array_equal(got.numpy().view(np.uint64),
+                                  np.array(want, dtype=np.uint64)[:, None].repeat(n, 1))

@@ -2,8 +2,9 @@
 the u64 plan's (K1-K3, K7, K8, K11, K12) on a 50/60-bit chain, the q32
 plan's (K4-K6, K9, K10, K13) on a composite chain of 30-bit primes, the
 one-cluster-launch transforms (K1-K6) at every ring size from 2^10 to
-2^17, the tensor-core base conversions (K12, K13) over their ranges of
-inputs and outputs, and each slice
+2^17, the tensor-core base conversions (K11, K12, K13) over their ranges of
+inputs and outputs, K9 over batches, digit counts and ring sizes, and each
+slice
 (relinearize and rescale; rotate, conjugate and the hoisted rotation sum;
 the FLEXIBLEAUTO ops, raise_mod and a Chebyshev series; the encoder's QlP
 plaintexts) on the card against the same slice on the CPU, and one N = 2^12
@@ -643,16 +644,132 @@ def test_bconv_tensor_core_worst_case(gpu):
 
 def test_bconv_k64_goes_to_simt_kernel(gpu):
     """At k = 64 (beyond K12's 128-bit bound) the wrapper launches K11's
-    kernel, exact, with or without a digit matrix."""
+    kernel, exact, with the table's digit matrix, and raises without it or
+    with one of another table: K11 is K12's form in chunks."""
     k, m = 64, 7
     tab, qi = _bconv64_case(gpu, k, m, 64)
     g = torch.Generator(device=gpu).manual_seed(64)
     s = torch.randint(0, 1 << 62, (2, k, 1 << 12), generator=g, dtype=torch.int64,
                       device=gpu) % qi
     bconv.BCONV_MXU.launches = bconv.BCONV.launches = 0
-    for diag in (None, bconv.digit_matrix(tab[0])):
-        assert torch.equal(bconv.bconv_matmul(s, *tab, diag), bconv.bconv_matmul_plain(s, *tab))
-    assert (bconv.BCONV_MXU.launches, bconv.BCONV.launches) == (0, 2)
+    assert torch.equal(bconv.bconv_matmul(s, *tab, bconv.digit_matrix(tab[0])),
+                       bconv.bconv_matmul_plain(s, *tab))
+    assert (bconv.BCONV_MXU.launches, bconv.BCONV.launches) == (0, 1)
+    for diag in (None, bconv.digit_matrix(tab[0][:, :48].contiguous())):
+        with pytest.raises(ValueError, match="digit matrix"):
+            bconv.bconv_matmul(s, *tab, diag)
+    assert bconv.BCONV.launches == 1
+
+
+def _k11_case(gpu, k: int, m: int, seed: int):
+    """u64 tables k -> m on 60-bit output moduli, and input moduli (k, 1) of
+    32 60-bit primes repeated (a chain holds at most 64 above 30 bits)."""
+    q_out = CoeffModulus.create(1 << 10, [60] * m)
+    p, rlo, rhi = (mm.u64_tensor(np.array([[f(mo)] for mo in q_out], dtype=np.uint64), gpu)
+                   for f in (lambda mo: mo.value, lambda mo: mo.const_ratio[0],
+                             lambda mo: mo.const_ratio[1]))
+    qi = mm.u64_tensor(np.array([[mo.value] for mo in CoeffModulus.create(1 << 10, [59] * 32)],
+                                dtype=np.uint64), gpu).repeat(-(-k // 32), 1)[:k]
+    g = torch.Generator(device=gpu).manual_seed(seed)
+    table = torch.randint(0, 1 << 62, (m, k), generator=g, dtype=torch.int64, device=gpu) % p
+    return (table, p, rlo, rhi), qi
+
+
+@pytest.mark.parametrize("m", [1, 30, 63])
+@pytest.mark.parametrize("k", [64, 65, 127, 128, 190, 400])
+def test_bconv_k11_equals_plain(gpu, k, m):
+    """K11 against its plain version through the wrapper: one 64-input chunk
+    (64), ragged last chunks (65, 127, 190), whole ones (128), and 400
+    inputs, more than one launch stages (384), so the second launch adds
+    to the first mod p; batch 1 to 3 at N = 2^12 and a ragged N = 1000;
+    ceil(k / 384) launches, all K11's."""
+    tab, qi = _k11_case(gpu, k, m, 1000 * k + m)
+    diag = bconv.digit_matrix(tab[0])
+    g = torch.Generator(device=gpu).manual_seed(k - m)
+    for lead, n in (((), 1 << 12), ((2,), 1 << 12), ((3,), 1 << 12), ((2,), 1000)):
+        s = torch.randint(0, 1 << 62, lead + (k, n), generator=g, dtype=torch.int64,
+                          device=gpu) % qi
+        bconv.BCONV_MXU.launches = bconv.BCONV.launches = 0
+        got = bconv.bconv_matmul(s, *tab, diag)
+        assert (bconv.BCONV_MXU.launches, bconv.BCONV.launches) == (0, -(-k // 384))
+        assert torch.equal(got, bconv.bconv_matmul_plain(s, *tab))
+
+
+def test_bconv_k11_direct_call_below_64(gpu):
+    """K11's entry point takes any k: called directly at 15 -> 30 (where the
+    wrapper takes K12) it equals the plain version and K12."""
+    from tpu_fhe_torch.ops._build import ptr
+
+    k, m, n = 15, 30, 1 << 12
+    tab, qi = _k11_case(gpu, k, m, 15)
+    diag = bconv.digit_matrix(tab[0])
+    s = _res(_Dev(gpu, n), qi, seed=15)
+    out = torch.empty((m, n), dtype=torch.int64, device=gpu)
+    bconv.BCONV(ptr(s), ptr(out), ptr(diag), *(ptr(c) for c in tab[1:]), 1, k, m, n, 0, k, 0)
+    assert torch.equal(out, bconv.bconv_matmul_plain(s, *tab))
+    assert torch.equal(out, bconv.bconv_matmul(s, *tab, diag))
+
+
+def _k9_case(gpu, n: int, batch: int, beta: int, seed: int):
+    """K9's operands on 30-bit primes: a key of beta + 1 digits over 12 key
+    rows, and t (batch, beta, 9, n) over 9 of them picked out of order (a
+    non-identity limb map)."""
+    key_rows, rows = 12, [0, 2, 3, 5, 6, 11, 10, 8, 9]
+    qs = _primes30(n, key_rows)
+    kq = mm.u32_tensor(np.array(qs, dtype=np.uint64).reshape(-1, 1), gpu)
+    limb_map = torch.tensor(rows, dtype=torch.int64, device=gpu)
+    q = kq[limb_map].contiguous()
+    fold = torch.from_numpy(mm.q32_mul_consts([qs[r] for r in rows]).astype(np.int64)
+                            .reshape(5, len(rows), 1)).to(gpu)
+    dev = _Dev(gpu, n)
+    evk = _res32(dev, kq, beta + 1, 2, seed=seed)
+    t = _res32(dev, q, *((batch,) if batch > 1 else ()), beta, seed=seed + 1)
+    return t, evk, limb_map, q, fold
+
+
+def _k9_holds(args) -> None:
+    before = ks.KS32.launches
+    got = ks.key_inner_prod32(*args)
+    assert ks.KS32.launches - before == 1
+    assert torch.equal(got, ks.key_inner_prod32_plain(*args))
+
+
+@pytest.mark.parametrize("beta", [1, 2, 3, 4, 40])
+@pytest.mark.parametrize("batch", [1, 2, 3, 5, 16, 17])
+def test_k9_stream_equals_plain(gpu, batch, beta):
+    """K9 against its plain version at N = 2^12: batches that are and are
+    not a multiple of the two ciphertexts a thread takes at once, beta 1-4
+    (the unrolled digit loops, the key in registers) and 40 (the runtime
+    loop, whose 96-bit sums use the carry word), a key of more digits than
+    beta, a limb map out of order; one launch each."""
+    _k9_holds(_k9_case(gpu, 1 << 12, batch, beta, 100 * batch + beta))
+
+
+@pytest.mark.parametrize("log_n", [10, 11, 12, 13, 14, 15, 16])
+def test_k9_stream_ring_sizes(gpu, log_n):
+    """K9 at every ring size from 2^10 (one block a limb) to 2^16, a batch
+    of 3, beta 2 (every q32 path's)."""
+    _k9_holds(_k9_case(gpu, 1 << log_n, 3, 2, log_n))
+
+
+def test_k9_refuses_misaligned_input(gpu):
+    """K9 takes 4 coefficients a thread with 16-byte accesses: on the card
+    N not a multiple of 4, or a t or key view that is not 16-byte aligned,
+    raises; it never routes to the plain version."""
+    t, evk, limb_map, q, fold = _k9_case(gpu, 1 << 10, 2, 2, 7)
+    odd = (t[..., :1022].contiguous(), evk[..., :1022].contiguous(), limb_map, q, fold)
+    flat = torch.empty(t.numel() + 1, dtype=torch.int32, device=gpu)
+    shifted = flat[1:].view(t.shape)
+    shifted.copy_(t)
+    kflat = torch.empty(evk.numel() + 1, dtype=torch.int32, device=gpu)
+    kshifted = kflat[1:].view(evk.shape)
+    kshifted.copy_(evk)
+    before = ks.KS32.launches
+    for args in (odd, (shifted, evk, limb_map, q, fold), (t, kshifted, limb_map, q, fold)):
+        assert args[0].is_contiguous() and args[1].is_contiguous()
+        with pytest.raises(ValueError, match="multiple of 4|aligned"):
+            ks.key_inner_prod32(*args)
+    assert ks.KS32.launches == before
 
 
 def test_bconv_refuses_missing_digit_matrix(gpu):

@@ -4,22 +4,13 @@
 //
 // Replaces three Pallas TPU kernels; the first two compute the same
 // function (tests/test_bconv_mxu.py holds them bit-identical):
-//   * tpu_fhe/ops/bconv_pallas.py:39 _kernel (K11) -> tfhe_bconv: u64
-//     multiply-accumulate into 128-bit accumulators, one Barrett landing
-//     per output limb;
+//   * tpu_fhe/ops/bconv_pallas.py:39 _kernel (K11) -> tfhe_bconv: the
+//     wrapper's kernel for k >= 64 inputs, K12's form in chunks;
 //   * tpu_fhe/ops/bconv_mxu_pallas.py:82 _kernel (K12) -> tfhe_bconv_mxu:
 //     the same sum through int8 digit planes on the tensor cores, the
 //     reference's default for k < 64 inputs;
 //   * tpu_fhe/ops/bconv_mxu_pallas.py:179 _kernel32 (K13) -> tfhe_bconv32:
 //     K12's form for the q32 plan (residues and moduli below 2^30).
-//
-// tfhe_bconv (K11; the wrapper's kernel for k >= 64): one thread per output
-// coefficient (b, j, n), a 128-bit (hi, lo) accumulator, a Barrett
-// reduction with the two-word ratio floor(2^128/p) every 63 terms (each
-// term is < 2^122, so 63 of them fit; tpu_fhe/ops/bconv.py _ACC_CHUNK) and
-// a mod-p sum of the chunks.  Each thread reads its k inputs down a column
-// (neighbouring threads on neighbouring n, so reads coalesce) and the
-// table row is the same for the whole block (broadcast from cache).
 //
 // tfhe_bconv_mxu (K12) and tfhe_bconv32 (K13) form the sum through
 // balanced base-256 digit planes on the int8 tensor cores.
@@ -55,39 +46,29 @@
 //     the row sum is below k 2^122 < 2^128), which barrett128 lands with
 //     the table's floor(2^128/p), the landing K11 uses.
 //
+//   * K11 (the TPU kernel's 128-bit multiply-accumulate, redesigned for
+//     the card) is K12's form for any k: a block stages its 64
+//     coefficients' inputs once in shared memory as digit planes (every
+//     output limb is computed from that one staging) and runs the K steps
+//     in chunks of 4 (64 inputs): a chunk's row sum is below
+//     64 (2^61 - 1)^2 < 2^128, so its 15 diagonals reassemble exactly into
+//     one 128-bit word, which barrett128 lands; the chunks are summed mod p
+//     in registers and the output is written once.  The table side is
+//     K12's digit matrix, read one chunk's K steps at a time.  A launch
+//     stages at most 384 inputs (200 KB of shared memory); the wrapper
+//     adds longer sums launch by launch mod p (accumulate).
+//
 // What bounds them on the H100: operations, just above bytes.  At the
 // u64 plan's 15 -> 30 x 2^15 about 0.0051 ms (0.0010 of int8 products at
 // the dense tensor-core rate and 0.0041 of epilogue IMADs, against 0.0035
 // for the 11.8 MB moved); K13 at 30 -> 59 about 0.0036 ms.  mma.sync runs
 // at about half of wgmma's rate, and the landing's 64-bit products are
-// several IMADs each; PERF.md has the times.
+// several IMADs each; K11 adds a landing for every further chunk of 64
+// inputs.  PERF.md has the times.
 
 #include "modarith.cuh"
 
 namespace {
-
-constexpr int kChunk = 63;
-constexpr int kThreads = 256;
-
-__global__ void bconv_kernel(const u64 *__restrict__ s, u64 *__restrict__ out,
-                             const u64 *__restrict__ table, const u64 *__restrict__ p,
-                             const u64 *__restrict__ ratio_lo, const u64 *__restrict__ ratio_hi,
-                             int k, int m, int n) {
-  const int j = blockIdx.y, b = blockIdx.z;
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const u64 pj = p[j], r0 = ratio_lo[j], r1 = ratio_hi[j];
-  const u64 *src = s + (size_t)b * k * n + i;
-  const u64 *row = table + (size_t)j * k;
-  u64 res = 0;
-  for (int c0 = 0; c0 < k; c0 += kChunk) {
-    const int c1 = c0 + kChunk < k ? c0 + kChunk : k;
-    u64 hi = 0, lo = 0;
-    for (int c = c0; c < c1; ++c) mac128(hi, lo, src[(size_t)c * n], row[c]);
-    res = csub(res + barrett128(hi, lo, pj, r0, r1), pj);
-  }
-  out[((size_t)b * m + j) * n + i] = res;
-}
 
 constexpr int kNT = 64;        // coefficients per block
 constexpr int kWarps = 8;
@@ -346,17 +327,175 @@ bconv_mxu_kernel(const u64 *__restrict__ s, u64 *__restrict__ out,
   }
 }
 
+// -- K11: K12's form over any number of inputs ------------------------------
+
+constexpr int kChunkSteps = 4;   // K steps (64 inputs) whose row sum one 128-bit word holds
+constexpr int kMaxSteps = 24;    // K steps staged a launch: sb <= 200 words, 200 KB
+constexpr int kTiles = 2;        // n8 tiles (8 coefficients) a warp: each A fragment feeds both
+constexpr int kK11Warps = kNT / (8 * kTiles);
+constexpr int kK11MinBlocks = 4;
+
+// Group W of the 15 byte diagonals over K steps [0, steps) of digit
+// fragments whose lag stride is `stride` K steps (a chunk of a longer
+// table), for the warp's kTiles tiles, folded into each output's 128-bit
+// sum: mxu_group's arithmetic with each table fragment applied to every
+// tile.  brow: the lane's input row of tile 0; tile t at + 8 t sb.
+template <int W>
+__device__ __forceinline__ void mxu_steps(u64 (&lo)[kTiles][4], u64 (&hi)[kTiles][4],
+                                          const uint4 *af, const u32 *brow, int steps,
+                                          int stride, int sb) {
+  int acc[kTiles][4][4];
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+    for (int d = 0; d < 4; ++d) acc[t][d][0] = acc[t][d][1] = acc[t][d][2] = acc[t][d][3] = 0;
+  for (int c = 0; c < steps; ++c) {
+    uint2 bf[kTiles][4];
+#pragma unroll
+    for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (2 * e + 8 >= 4 * W && 2 * e <= 4 * W + 3)   // pair e meets group W
+          bf[t][e] = *reinterpret_cast<const uint2 *>(brow + (8 * t + e * kNT) * sb + 8 * c);
+#pragma unroll
+    for (int d = 0; d < kLags; ++d) {
+      if (d + 6 < 4 * W || d > 4 * W + 3) continue;   // A_d meets group W
+      const uint4 fa = __ldg(af + (d * stride + c) * 32);
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int s = d + 2 * e - 4 * W;
+          if (s >= 0 && s < 4) mma_s8(acc[t][s], fa, bf[t][e].x, bf[t][e].y);
+        }
+    }
+  }
+#pragma unroll
+  for (int t = 0; t < kTiles; ++t)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const long long g = mad_wide(acc[t][3][r], 1 << 24,
+                                   mad_wide(acc[t][2][r], 1 << 16,
+                                            mad_wide(acc[t][1][r], 1 << 8, acc[t][0][r])));
+      add_shifted<W>(lo[t][r], hi[t][r], g);
+    }
+}
+
+// Block (tile, b): coefficients [64 tile, +64) of batch b, inputs [k0, k0 +
+// kc), every output limb.  As in K12's kernel, warp w stages the input
+// planes of its coefficients (8 kTiles of them) once and computes every
+// output group from them; the K steps run in chunks of kChunkSteps, each
+// chunk's diagonals reassembled into its exact 128-bit row sum and landed
+// by barrett128, the chunks summed mod p in registers.  afrag: the whole
+// table's digit fragments (ceil(m/16), 9, ceil(k/16), 32) uint4; with
+// accumulate the landing adds the sum already in `out` mod p.
+__global__ void __launch_bounds__(kK11Warps * 32, kK11MinBlocks)
+bconv_kernel(const u64 *__restrict__ s, u64 *__restrict__ out, const uint4 *__restrict__ afrag,
+             const u64 *__restrict__ p, const u64 *__restrict__ ratio_lo,
+             const u64 *__restrict__ ratio_hi, int k, int m, int n, int k0, int kc, int sb,
+             int accumulate) {
+  constexpr int kRows = 8 * kTiles;                              // a warp's coefficients
+  const int steps = (kc + 15) >> 4, stride = (k + 15) >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int b = blockIdx.y, n0 = blockIdx.x * kNT + warp * kRows;
+  const u64 *src = s + (static_cast<size_t>(b) * k + k0) * n + n0;
+  u32 *bsm = bconv_smem + warp * kRows * sb;                     // pair e at + e kNT sb
+  const int x = lane % kRows;
+  // unrolled so that several quads' loads are in flight before their stores
+#pragma unroll 4
+  for (int iq = lane / kRows; iq < steps << 2; iq += 32 / kRows) {
+    u32 lo[4], hi[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int i = 4 * iq + r;
+      const u64 v = (i < kc && n0 + x < n ? src[(size_t)i * n + x] : 0ull) + 0x8080808080808080ull;
+      lo[r] = static_cast<u32>(v) ^ 0x80808080u;
+      hi[r] = static_cast<u32>(v >> 32) ^ 0x80808080u;
+    }
+    u32 pl[8];
+    planes_of(lo, pl);
+    planes_of(hi, pl + 4);
+    uint2 *dst = reinterpret_cast<uint2 *>(bsm + x * sb + 2 * iq);
+#pragma unroll
+    for (int q = 0; q < 4; ++q) dst[q * kNT * sb / 2] = make_uint2(pl[2 * q], pl[2 * q + 1]);
+  }
+  __syncwarp();
+
+  const int g = lane >> 2, h = lane & 3;
+  const u32 *brow = bsm + g * sb + 2 * h;
+  for (int grp = 0; grp < (m + 15) >> 4; ++grp) {
+    const uint4 *af = afrag + (static_cast<size_t>(grp) * kLags * stride + (k0 >> 4)) * 32 + lane;
+    // output r of tile t: limb 16 grp + g + 8 (r >> 1), coefficient
+    // n0 + 8 t + 2 h + (r & 1)
+    const int j0 = min(grp * 16 + g, m - 1), j1 = min(grp * 16 + g + 8, m - 1);
+    u64 res[kTiles][4] = {};
+    for (int c0 = 0; c0 < steps; c0 += kChunkSteps) {
+      const int cs = min(kChunkSteps, steps - c0);
+      u64 lo[kTiles][4] = {}, hi[kTiles][4] = {};
+      mxu_steps<0>(lo, hi, af + c0 * 32, brow + 8 * c0, cs, stride, sb);
+      mxu_steps<1>(lo, hi, af + c0 * 32, brow + 8 * c0, cs, stride, sb);
+      mxu_steps<2>(lo, hi, af + c0 * 32, brow + 8 * c0, cs, stride, sb);
+      mxu_steps<3>(lo, hi, af + c0 * 32, brow + 8 * c0, cs, stride, sb);
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int j = r < 2 ? j0 : j1;
+        const u64 pj = __ldg(p + j), r0 = __ldg(ratio_lo + j), r1 = __ldg(ratio_hi + j);
+#pragma unroll
+        for (int t = 0; t < kTiles; ++t)
+          res[t][r] = csub(res[t][r] + barrett128(hi[t][r], lo[t][r], pj, r0, r1), pj);
+      }
+    }
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int j = grp * 16 + g + half * 8;
+      if (j >= m) continue;
+      const u64 pj = __ldg(p + j);
+#pragma unroll
+      for (int t = 0; t < kTiles; ++t) {
+        const int col = n0 + 8 * t + 2 * h;
+        u64 v0 = res[t][2 * half], v1 = res[t][2 * half + 1];
+        u64 *dst = out + ((size_t)b * m + j) * n + col;
+        if (accumulate) {
+          if (col < n) v0 = csub(v0 + dst[0], pj);
+          if (col + 1 < n) v1 = csub(v1 + dst[1], pj);
+        }
+        if (col + 1 < n && (n & 1) == 0) {
+          *reinterpret_cast<ulonglong2 *>(dst) = make_ulonglong2(v0, v1);
+        } else if (col < n) {
+          dst[0] = v0;
+          if (col + 1 < n) dst[1] = v1;
+        }
+      }
+    }
+  }
+}
+
 }  // namespace
 
 extern "C" {
 
-// K11.  s: (batch, k, n); out: (batch, m, n); table: (m, k); p, ratio_lo,
-// ratio_hi: (m,).
-int tfhe_bconv(const u64 *s, u64 *out, const u64 *table, const u64 *p, const u64 *ratio_lo,
-               const u64 *ratio_hi, int batch, int k, int m, int n, void *stream) {
-  const dim3 grid((n + kThreads - 1) / kThreads, m, batch);
-  bconv_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-      s, out, table, p, ratio_lo, ratio_hi, k, m, n);
+// K11.  s: (batch, k, n) residues below 2^61, any k; out: (batch, m, n);
+// afrag: the table's digit fragments (ceil(m/16), 9, ceil(k/16), 32, 4)
+// words (ops/bconv.py digit_matrix, as K12's); p, ratio_lo, ratio_hi: (m,).
+// Sums inputs [k0, k0 + kc), kc <= 384 and k0 a multiple of 16; with
+// accumulate, adds to out mod p.
+int tfhe_bconv(const u64 *s, u64 *out, const u32 *afrag, const u64 *p, const u64 *ratio_lo,
+               const u64 *ratio_hi, int batch, int k, int m, int n, int k0, int kc,
+               int accumulate, void *stream) {
+  if (kc < 1 || kc > 16 * kMaxSteps || (k0 & 15) != 0 || k0 < 0 || k0 + kc > k)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int steps = (kc + 15) >> 4;
+  const int sb = (8 * steps + 23) / 32 * 32 + 8;   // >= 8 steps words, = 8 mod 32
+  const int smem = 4 * kNT * sb * sizeof(u32);     // at most 200 KB
+  if (smem > 48 * 1024) {
+    const cudaError_t e =
+        cudaFuncSetAttribute(bconv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  const dim3 grid((n + kNT - 1) / kNT, batch);
+  bconv_kernel<<<grid, kK11Warps * 32, smem, static_cast<cudaStream_t>(stream)>>>(
+      s, out, reinterpret_cast<const uint4 *>(afrag), p, ratio_lo, ratio_hi, k, m, n, k0, kc,
+      sb, accumulate);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -12,11 +12,14 @@ kernel ``tfhe_bconv_mxu``), the sum through balanced int8 digit planes on
 the tensor cores -- 8 planes of each residue and of each table entry, s8
 x s8 -> s32 products into the 15 byte diagonals, a wrapping 128-bit
 reassembly and one Barrett landing -- and for k >= 64 K11's kernel
-(``tfhe_bconv``), which accumulates 128-bit products in chunks of 63
-terms (the reference's ``_ACC_CHUNK``: terms are < 2^122, so 63 fit) with
-one Barrett landing per chunk.  The plain version reduces each product
-and sums mod p, which is the same function; ``bconv_matmul_digits_plain``
-repeats K12's digit-plane arithmetic from the digit matrix.
+(``tfhe_bconv``, port of ``tpu_fhe/ops/bconv_pallas.py``), the same form
+in chunks of 64 inputs (4 K steps of 16): a chunk's row sum is below
+64 (2^61 - 1)^2 < 2^128, so each chunk is reassembled exactly and landed
+alone, and the chunks are summed mod p.  Both are bound by operations
+(the int8 products and the landings' 64-bit products) and need the
+table's digit matrix.  The plain version reduces each product and sums
+mod p, which is the same function; ``bconv_matmul_digits_plain`` repeats
+the kernels' digit-plane arithmetic, chunk by chunk, from the digit matrix.
 
 ``bconv_matmul32`` is the q32 form (port of
 ``tpu_fhe/ops/bconv_mxu_pallas.py::bconv_matmul_mxu_pallas32``, K13): int32
@@ -45,7 +48,7 @@ from . import modarith as ma
 from ._build import INT, PTR, CudaKernel, ptr
 
 BCONV = CudaKernel(
-    "bconv", "bconv.cu", "tfhe_bconv", [PTR] * 6 + [INT] * 4,
+    "bconv", "bconv.cu", "tfhe_bconv", [PTR] * 6 + [INT] * 7,
     "tpu_fhe/ops/bconv_pallas.py:39 _kernel (K11)")
 BCONV_MXU = CudaKernel(
     "bconv_mxu", "bconv.cu", "tfhe_bconv_mxu", [PTR] * 6 + [INT] * 4,
@@ -59,6 +62,8 @@ N_PLANES = 8            # balanced base-256 digits of a value below 2^61
 N_DIAG = 2 * N_PLANES - 1
 N_LAGS = N_PLANES + 1   # K12's table fragments [plane d | plane d - 1], d = 0 .. 8
 MXU_MAX_K = 63          # K12's 128-bit row sum is exact for k < 64 inputs
+CHUNK_K = 64            # K11's inputs a 128-bit row sum: 64 (2^61 - 1)^2 < 2^128
+LAUNCH_K = 384          # K11's inputs a launch (its shared-memory staging)
 
 
 def bconv_matmul_plain(scaled, qhat_mod_p, p, p_ratio_lo, p_ratio_hi, diag=None) -> torch.Tensor:
@@ -78,8 +83,9 @@ def bconv_matmul(scaled: torch.Tensor, qhat_mod_p: torch.Tensor, p: torch.Tensor
                  diag: torch.Tensor | None = None) -> torch.Tensor:
     """scaled (..., k, N) canonical residues of the input base; qhat_mod_p
     (m, k) table [p_j][q_i]; p and its Barrett words (m, 1); diag the
-    table's ``digit_matrix`` (needed by K12's kernel, k < 64; built once
-    per table).  Returns (..., m, N) residues of the output base."""
+    table's ``digit_matrix`` (needed by both kernels, K12 for k < 64 and
+    K11 beyond; built once per table).  Returns (..., m, N) residues of the
+    output base."""
     m, k = qhat_mod_p.shape
     if scaled.dtype != torch.int64 or scaled.dim() < 2 or scaled.shape[-2] != k:
         raise ValueError(f"bconv_matmul: expected (..., {k}, N) int64, got "
@@ -94,16 +100,19 @@ def bconv_matmul(scaled: torch.Tensor, qhat_mod_p: torch.Tensor, p: torch.Tensor
         batch = scaled.numel() // (k * n)
         if batch > 65535 or m > 65535:
             raise ValueError("bconv_matmul: batch and output base must be <= 65535")
-        out = torch.empty(scaled.shape[:-2] + (m, n), dtype=torch.int64,
-                          device=scaled.device)
-        if k > MXU_MAX_K:
-            BCONV(ptr(scaled), ptr(out), *(ptr(c) for c in consts), batch, k, m, n)
-            return out
         shape = digit_matrix_shape(m, k)
         if diag is None or diag.shape != shape or diag.dtype != torch.int32 \
                 or diag.device != scaled.device or not diag.is_contiguous():
-            raise ValueError(f"bconv_matmul: K12's kernel needs the table's digit matrix "
-                             f"{shape} int32 on the data's device (digit_matrix)")
+            raise ValueError(f"bconv_matmul: the {'K11' if k > MXU_MAX_K else 'K12'} kernel "
+                             f"needs the table's digit matrix {shape} int32 on the data's "
+                             "device (digit_matrix)")
+        out = torch.empty(scaled.shape[:-2] + (m, n), dtype=torch.int64,
+                          device=scaled.device)
+        if k > MXU_MAX_K:
+            for k0 in range(0, k, LAUNCH_K):
+                BCONV(ptr(scaled), ptr(out), ptr(diag), *(ptr(c) for c in consts[1:]),
+                      batch, k, m, n, k0, min(LAUNCH_K, k - k0), int(k0 > 0))
+            return out
         BCONV_MXU(ptr(scaled), ptr(out), ptr(diag), *(ptr(c) for c in consts[1:]),
                   batch, k, m, n)
         return out
@@ -210,13 +219,15 @@ def _u64_of_words(w_lo: torch.Tensor, w_hi: torch.Tensor) -> torch.Tensor:
 
 def bconv_matmul_digits_plain(scaled, qhat_mod_p, p, p_ratio_lo, p_ratio_hi,
                               diag) -> torch.Tensor:
-    """K12's kernel arithmetic on the CPU, from the digit matrix `diag`
-    (``digit_matrix``): per 16 inputs the s32 products A_d @ [plane 2e;
-    plane 2e + 1] of the inputs' digits into diagonal d + 2e, the four
-    signed 64-bit groups G_w = sum_r D_{4w + r} 2^(8r), their sum
-    sum_w G_w 2^(32w) mod 2^128 (the row sum itself, below k 2^122), and
-    the Barrett landing with floor(2^128/p).  Takes bconv_matmul's
-    arguments; `qhat_mod_p` gives the shape only."""
+    """K12's and K11's kernel arithmetic on the CPU, from the digit matrix
+    `diag` (``digit_matrix``): the K steps of 16 inputs in chunks of
+    CHUNK_K inputs (one chunk for k < 64, K12's case); per chunk and K step
+    the s32 products A_d @ [plane 2e; plane 2e + 1] of the inputs' digits
+    into diagonal d + 2e, the four signed 64-bit groups
+    G_w = sum_r D_{4w + r} 2^(8r), their sum sum_w G_w 2^(32w) mod 2^128
+    (the chunk's row sum itself, below 64 (2^61 - 1)^2 < 2^128), its
+    Barrett landing with floor(2^128/p), and the chunks' sum mod p.  Takes
+    bconv_matmul's arguments; `qhat_mod_p` gives the shape only."""
     m, k = qhat_mod_p.shape
     a = fragment_blocks(diag).to(torch.int64)                    # (9, 16 mg, 32 ch)
     ch = a.shape[-1] // 32
@@ -224,28 +235,32 @@ def bconv_matmul_digits_plain(scaled, qhat_mod_p, p, p_ratio_lo, p_ratio_hi,
     x = torch.cat([x, x.new_zeros(x.shape[:-2] + (16 * ch - k, x.shape[-1]))], dim=-2)
     dig = digit_planes(x)                                        # (..., 16 ch, N, 8)
     lead, n = x.shape[:-2], x.shape[-1]
-    # pair e of chunk c: rows 32c + kk = input 16c + kk of plane 2e + (kk >= 16)
+    # pair e of step c: rows 32c + kk = input 16c + kk of plane 2e + (kk >= 16)
     b = dig.reshape(lead + (ch, 16, n, 4, 2)).movedim(-2, 0).movedim(-1, -3)  # (4, ..., ch, 2, 16, N)
     b = b.reshape((4,) + lead + (32 * ch, n))
-    d = [None] * N_DIAG
-    for lag in range(N_LAGS):
-        for e in range(4):
-            prod = a[lag] @ b[e]                                 # (..., 16 mg, N)
-            s = lag + 2 * e
-            d[s] = prod if d[s] is None else d[s] + prod
-    if max(int(v.abs().max()) for v in d) >= 1 << 31:
-        raise AssertionError("a diagonal left the s32 range")
-    g = [sum(d[s] * (1 << (8 * (s - 4 * w))) for s in range(4 * w, min(4 * w + 4, N_DIAG)))
-         for w in range(4)]
-    # sum_w G_w 2^(32w) mod 2^128 in 32-bit words, carries by arithmetic shift
-    words, carry = [], 0
-    for w in range(4):
-        t = g[w] + carry
-        words.append(t & ma.M32)
-        carry = t >> 32
-    lo, hi = _u64_of_words(words[0], words[1]), _u64_of_words(words[2], words[3])
     q, rlo, rhi = (v.reshape(m, 1).cpu() for v in (p, p_ratio_lo, p_ratio_hi))
-    out = ma.barrett_reduce_u128(hi[..., :m, :], lo[..., :m, :], q, rlo, rhi)
+    out = None
+    for c0 in range(0, ch, CHUNK_K // 16):
+        cols = slice(32 * c0, 32 * min(ch, c0 + CHUNK_K // 16))
+        d = [None] * N_DIAG
+        for lag in range(N_LAGS):
+            for e in range(4):
+                prod = a[lag][:, cols] @ b[e][..., cols, :]      # (..., 16 mg, N)
+                s = lag + 2 * e
+                d[s] = prod if d[s] is None else d[s] + prod
+        if max(int(v.abs().max()) for v in d) >= 1 << 31:
+            raise AssertionError("a diagonal left the s32 range")
+        g = [sum(d[s] * (1 << (8 * (s - 4 * w))) for s in range(4 * w, min(4 * w + 4, N_DIAG)))
+             for w in range(4)]
+        # sum_w G_w 2^(32w) mod 2^128 in 32-bit words, carries by arithmetic shift
+        words, carry = [], 0
+        for w in range(4):
+            t = g[w] + carry
+            words.append(t & ma.M32)
+            carry = t >> 32
+        lo, hi = _u64_of_words(words[0], words[1]), _u64_of_words(words[2], words[3])
+        part = ma.barrett_reduce_u128(hi[..., :m, :], lo[..., :m, :], q, rlo, rhi)
+        out = part if out is None else ma.add_mod(out, part, q)
     return out.to(scaled.device)
 
 
@@ -441,7 +456,10 @@ def bconv_hps(x, qhatinv, qhatinv_shoup, q, qinv_hi, qinv_lo, qhat_mod_p, alpha_
 def sr_table(cross: torch.Tensor, diag: torch.Tensor) -> torch.Tensor:
     """The table scale_and_round_hps converts with: [cross | diag(diag)]
     (m, k + m) when k + m < 64, so that the diagonal term rides the same
-    conversion (K12's kernel), else cross (m, k) alone."""
+    conversion (K12's kernel), else cross (m, k) alone (K11's kernel, the
+    diagonal term one multiply mod p).  Both kernels take any table with
+    its digit matrix; the split keeps each HPS shape on the route it has
+    been measured on."""
     m, k = cross.shape
     if k + m <= MXU_MAX_K:
         return torch.cat([cross, torch.diag(diag.reshape(-1))], dim=1)
@@ -455,8 +473,8 @@ def scale_and_round_hps(x_a, x_b, table, diag, frac_hi, frac_lo, p, p_ratio_lo, 
     scale-and-round (tpu_fhe/ops/bconv.py:198-253).  x_a (..., k, N) the
     scaled source limbs; x_b (..., m, N) the resident limbs of the output
     base; `table` is sr_table(cross, diag) for cross (m, k) and diag (m, 1),
-    and `table_diag` its digit matrix (needed by K12 on a CUDA tensor when
-    the table has fewer than 64 columns); p (m, 1); frac over x_a.  When
+    and `table_diag` its digit matrix (needed on a CUDA tensor, by K12
+    below 64 columns and by K11 from 64 on); p (m, 1); frac over x_a.  When
     k + m < 64 the conversion takes [x_a; x_b] through [cross | diag(diag)];
     otherwise cross alone takes x_a and the diagonal term is one multiply
     mod p.  Either way the sum is the same value mod p as the reference's

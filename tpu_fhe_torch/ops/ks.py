@@ -21,9 +21,13 @@ rows of the key level), never concatenated.  Four CUDA kernels
 
 Every form computes the same canonical sum.  The plain versions reduce each
 digit product and add mod q; on a batch they equal a loop of the one-set
-version over it.  The kernels give each thread its coefficient in 1, 2
-or, from a batch of 3 on, 4 ciphertexts of the batch (``tfhe_ks_per_thread``),
-so each key word is read once for them.
+version over it.  All four are bound by bytes.  K7, K8 and K10 give each
+thread its coefficient in 1, 2 or, from a batch of 3 on, 4 ciphertexts of
+the batch (``tfhe_ks_per_thread``), so each key word is read once for
+them.  K9 is a stream: a thread owns 4 consecutive coefficients of one
+limb, loads their key words once and walks the whole batch with 16-byte
+loads and streaming stores, so a launch reads the key once; it needs N a
+multiple of 4 and 16-byte aligned t and key, and raises otherwise.
 """
 
 from __future__ import annotations
@@ -146,7 +150,8 @@ def key_inner_prod32(t: torch.Tensor, evk: torch.Tensor, limb_map: torch.Tensor,
                      q: torch.Tensor, fold: torch.Tensor) -> torch.Tensor:
     """q32 plan, a key without Shoup words: t, evk and q (moduli < 2^30) as
     int32, as key_inner_prod; fold (5, L, 1) int64 constants of the QlP
-    moduli.  Exact for any beta.  Returns (2, L, N), or (B, 2, L, N) for a
+    moduli.  Exact for any beta.  On the card N must be a multiple of 4 and
+    t and evk 16-byte aligned.  Returns (2, L, N), or (B, 2, L, N) for a
     batch, int32."""
     beta, L, n = t.shape[-3:]
     if fold.shape != (5, L, 1) or fold.dtype != torch.int64 or fold.device != t.device:
@@ -154,6 +159,9 @@ def key_inner_prod32(t: torch.Tensor, evk: torch.Tensor, limb_map: torch.Tensor,
                          "device")
     if not _check("key_inner_prod32", t, (evk,), limb_map, q, (torch.int32,)):
         return key_inner_prod32_plain(t, evk, limb_map, q)
+    if n % 4 or t.data_ptr() % 16 or evk.data_ptr() % 16:
+        raise ValueError("key_inner_prod32: the kernel takes 4 coefficients a thread: N must be "
+                         "a multiple of 4 and t and the key 16-byte aligned")
     out = _out(t)
     KS32(ptr(t), ptr(evk), ptr(limb_map.contiguous()), ptr(q.reshape(-1).contiguous()),
          ptr(fold.contiguous()), ptr(out), beta, L, evk.shape[2], n, _batch(t))

@@ -58,11 +58,11 @@ class _Tables:
         vals = [int(v) for v in vals]
         return self.col(vals), self.col([(v << 64) // int(q) for v, q in zip(vals, mods)])
 
-    def matrix(self, rows) -> tuple[torch.Tensor, torch.Tensor | None]:
-        """A conversion table (m, k) and its digit matrix (None for k >= 64,
-        where the conversion takes K11's kernel)."""
+    def matrix(self, rows) -> tuple[torch.Tensor, torch.Tensor]:
+        """A conversion table (m, k) and its digit matrix (K12's operand
+        for k < 64, K11's beyond)."""
         t = mm.u64_tensor(np.asarray(rows, dtype=object).astype(np.uint64), self.device)
-        return t, (digit_matrix(t) if t.shape[1] < 64 else None)
+        return t, digit_matrix(t)
 
     def mods(self, moduli) -> ModulusVec:
         return ModulusVec.from_moduli(tuple(moduli), self.device)
@@ -163,7 +163,7 @@ class SRTables:
     + b_j*diag[j] + round(sum_i a_i*frac_i) over the output base."""
 
     table: torch.Tensor                   # sr_table(cross, diag) of cross (m, k)
-    table_diag: torch.Tensor | None       # its digit matrix
+    table_diag: torch.Tensor              # its digit matrix
     diag: torch.Tensor                    # (m, 1)
     frac_hi: torch.Tensor                 # (k, 1)
     frac_lo: torch.Tensor
@@ -359,7 +359,7 @@ class BfvTools:
         table = sr_table(cross, diag)
         return SRTables(
             table=table,
-            table_diag=digit_matrix(table) if table.shape[1] < 64 else None,
+            table_diag=digit_matrix(table),
             diag=diag,
             frac_hi=T.col([f[0] for f in fix]), frac_lo=T.col([f[1] for f in fix]),
             p=T.mods([s_base.base[j] for j in b_idx]),
