@@ -208,18 +208,31 @@ diagonal FC layer (tpu_fhe_torch/models/conv_packed.py):
     at 32 x 32, 32 -> 32 at 16 x 16 and 64 -> 64 at 8 x 8 (one input and
     one output ciphertext each, the output channels in chunks of 16, so
     the collapse rotations run K9 over a batch) and the FC layer 64 -> 10
-    (rows padded to 16) with a bias, on seeded inputs: each layer within
-    1e-3 (conv) or 1e-4 (FC) of numpy float64, K9 launched once per rotate
+    (rows padded to 16) with a bias, on seeded inputs, every mask embedded
+    on the card (CkksEncoder(ctx, device_embed=True)): first DeviceEmbedding
+    on the card against the host's float64 embedding within 1e-10
+    (inverse; forward within 1e-9) at (16, 2^15) and at the DNN's sparse
+    1024 slots, with each transform's ms; then each layer within 1e-3
+    (conv) or 1e-4 (FC) of numpy float64, K9 launched once per rotate
     call; per layer its ms (CUDA events), rotate calls, launches of each
-    kernel (counters set to 0 first), host seconds of mask encoding and
-    peak memory; every distinct wrapper call of a first pass held against
-    its plain version as it came, the timed pass equal to it, and each
-    kernel's widest call timed and bounded.
+    kernel (counters set to 0 first), seconds of mask encoding (CUDA
+    events around each encode) and peak memory; every distinct wrapper
+    call of a first pass held against its plain version as it came, the
+    timed pass equal to it, and each kernel's widest call timed and
+    bounded; then the 16 -> 16 convolution once more through the host
+    embedding, its ms and mask seconds beside the device run's and its
+    decoded output within 1e-6 of the device run's.
+
+Then:
+
+16. examples/torch_ckks_basics.py and examples/torch_ckks_chebyshev.py at
+    their default sizes (N = 2048 and 512, the u64 plan), each to its
+    final OK with every gate passed, and their launches.
 
 Each phase's seconds, then the kernels line (every kernel of both plans,
 its launches summed over the requests, rotations, EvalMod, raise_mod, the
 flagship bootstrap, the DNN layers, the ResNet-20 inference, phase 14 and
-the packed layers, its
+the packed layers and the examples, its
 headline numbers and under "checks" each shape it was held at with that
 shape's ms, plain ms and bound) and the line {"ok": true, "device":
 {...}}.
@@ -494,6 +507,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     seconds["15"] = time.time() - t0
+    # -- 16. the CKKS examples at their default sizes
+    t0 = time.time()
+    plans[0]["examples"] = examples_phase(plans[0]["ck"], card)
+    plans[1]["examples"] = dict.fromkeys(plans[1]["launches"], 0)
+    seconds["16"] = time.time() - t0
     log("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log(f"[profile] the fills leading each window: {MARKERS}")
     line = []
@@ -501,7 +519,7 @@ def main() -> int:
         line += plan["ck"].line({name: count + plan["emod"][name] + plan["raised"][name]
                                  + plan["boot"][name] + plan["dnn"][name]
                                  + plan["resnet"][name] + plan["bfv"][name]
-                                 + plan["packed"][name]
+                                 + plan["packed"][name] + plan["examples"][name]
                                  for name, count in plan["launches"].items()})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -2266,6 +2284,9 @@ PACKED_LAYERS = ((16, 32), (32, 16), (64, 8))
 PACKED_FC = (10, 64, 16)
 PACKED_SCALE = 2.0 ** 40                 # the reference's mask scale (conv_packed.py:58)
 PACKED_CONV_TOL, PACKED_FC_TOL = 1e-3, 1e-4   # tests/test_conv_packed.py's bounds
+PACKED_BATCH = 16                        # a chunk's output channels on an 80 GB card
+EMBED_TOL, EMBED_FWD_TOL = 1e-10, 1e-9   # tests/test_special_fft.py's bounds
+EMBED_RUN_TOL = 1e-6                     # device- against host-embedded conv, decoded
 # the per-channel inference's launches, measured on one H100 (PERF.md's
 # kernel table), beside the batched inference's
 PER_CHANNEL_LAUNCHES = {"ntt_fwd32": 14294, "ntt_inv32": 43091, "ntt_fwd_landing32": 34944,
@@ -2706,8 +2727,9 @@ def packed_phase(ck: Checker, card: str) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t0 = time.time()
     ctx = dnn_context("q32", RESNET_N, UNIFORM_SINE, (2, 2), RESNET_LEVELS_AFTER, special=15)
-    sk, enc = SecretKey(ctx, seed=2028), CkksEncoder(ctx)
+    sk, enc = SecretKey(ctx, seed=2028), CkksEncoder(ctx, device_embed=True)
     pc = PackedConv(ctx, enc, scale=PACKED_SCALE)
+    embedding_checks(enc, card)
     slots = ctx.n // 2
     lays = [pc.layout(w, 3) for _, w in PACKED_LAYERS]
     classes, feats, rows = PACKED_FC
@@ -2744,7 +2766,7 @@ def packed_phase(ck: Checker, card: str) -> dict:
         rotations = (lay.f_h ** 2 - 1) * len(din) + chunks * (lay.n_i.bit_length() - 1)
         layers.append(dict(
             what=f"conv 3x3 {c} -> {c} at {w} x {w} (block {lay.block}, n_i {lay.n_i}, "
-                 f"{chunks} chunks of {pc.channel_batch(c)})",
+                 f"{chunks} chunks of {pc.channel_batch(c)})", filt=filt, din=din,
             run=lambda filt=filt, din=din, lay=lay: pc.eval_convolution(filt, gk, din, lay),
             rotations=rotations, tol=PACKED_CONV_TOL,
             decode=lambda out, lay=lay, c=c: pc.decode_outputs([low(o) for o in out], lay,
@@ -2757,11 +2779,10 @@ def packed_phase(ck: Checker, card: str) -> dict:
                                          slots=slots))
 
     def fc():
-        t = time.perf_counter()
-        diag = fc_weight_encode(enc, weight, PACKED_SCALE)
-        b = enc.encode(np.pad(bias, (0, slots - classes)), fc_output_scale(ctx, ct, diag[0]),
-                       chain_index=2, slots=slots)
-        pc.mask_seconds += time.perf_counter() - t
+        with pc.timing_masks():
+            diag = fc_weight_encode(enc, weight, PACKED_SCALE)
+            b = enc.encode(np.pad(bias, (0, slots - classes)),
+                           fc_output_scale(ctx, ct, diag[0]), chain_index=2, slots=slots)
         return [fully_connected(ctx, gk, ct, diag, feats, b)]
 
     def fc_decode(out):
@@ -2783,20 +2804,24 @@ def packed_phase(ck: Checker, card: str) -> dict:
     log(f"[q32 packed] the four layers with each distinct wrapper call held against its "
         f"plain version as it came: {time.time() - t0:.1f} s")
 
-    total = dict.fromkeys(ck.launches(), 0)
-    for layer, first in zip(layers, held):
+    def timed(run, conv):
+        """(output, ms by CUDA events, host seconds, mask seconds) of one
+        run of a layer."""
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        pc.mask_seconds = 0.0
-        ck.reset()
+        conv.mask_seconds = 0.0
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
         h0 = time.time()
         start.record()
-        out = layer["run"]()
+        out = run()
         end.record()
         end.synchronize()
-        wall = time.time() - h0
-        ms = start.elapsed_time(end)
+        return out, start.elapsed_time(end), time.time() - h0, conv.mask_seconds
+
+    total = dict.fromkeys(ck.launches(), 0)
+    for layer, first in zip(layers, held):
+        ck.reset()
+        out, ms, wall, mask_s = timed(layer["run"], pc)
         launches = ck.launches()
         for name, count in launches.items():
             total[name] += count
@@ -2813,8 +2838,10 @@ def packed_phase(ck: Checker, card: str) -> dict:
             fail(f"q32 packed {layer['what']}: decoded {got.shape} (want "
                  f"{layer['want'].shape}) or non-finite values")
         err = float(np.max(np.abs(got - layer["want"])))
+        layer.update(got=got, ms=ms, mask_s=mask_s)
         log(f"[q32 packed] {layer['what']}: {ms:.1f} ms (CUDA events, first timed run; host "
-            f"clock {wall:.3f} s, of which encoding masks {pc.mask_seconds:.3f} s), "
+            f"clock {wall:.3f} s; encoding masks on the device embedding {mask_s:.4f} s, "
+            f"CUDA events around each encode), "
             f"{layer['rotations']} rotate calls, chain index {out[0].chain_index}, peak "
             f"device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB on {card}; "
             f"max err {err:.3e} against numpy (limit {layer['tol']}; decode {dec_s:.1f} s); "
@@ -2823,8 +2850,100 @@ def packed_phase(ck: Checker, card: str) -> dict:
             fail(f"q32 packed {layer['what']}: max error {err} > {layer['tol']}")
     ck.require_launched("q32 packed layers", total, ("key_inner_prod_shoup32",))
     del held
+    # the first convolution again through the host embedding, in the same call
+    c, w = PACKED_LAYERS[0]
+    dev_layer = layers[0]
+    host_pc = PackedConv(ctx, CkksEncoder(ctx), scale=PACKED_SCALE)
+    out, ms, wall, mask_s = timed(
+        lambda: host_pc.eval_convolution(dev_layer["filt"], gk, dev_layer["din"], lays[0]),
+        host_pc)
+    got = host_pc.decode_outputs([low(o) for o in out], lays[0], c, sk)
+    diff = float(np.max(np.abs(got - dev_layer["got"])))
+    log(f"[q32 packed] conv 3x3 {c} -> {c} at {w} x {w}, masks embedded on the device against "
+        f"the host: {dev_layer['ms']:.1f} against {ms:.1f} ms (CUDA events), masks "
+        f"{dev_layer['mask_s']:.4f} against {mask_s:.4f} s (host clock of the host run "
+        f"{wall:.3f} s); decoded outputs max |diff| {diff:.3e} (limit {EMBED_RUN_TOL}) on "
+        f"{card}")
+    if not diff <= EMBED_RUN_TOL:
+        fail(f"q32 packed: the device-embedded conv differs from the host-embedded one by {diff}")
     path_checks("q32", "packed layers", ck, calls, total)
     return total
+
+
+def embedding_checks(enc, card: str) -> None:
+    """DeviceEmbedding on the card against the host's float64 embedding
+    (_host_embed_inverse, numpy) within EMBED_TOL, and embed_forward against
+    the host's decode transform within EMBED_FWD_TOL: a chunk's 16 masks at
+    full packing (16, 2^15) and at the DNN's sparse slot count, ResNet-20's
+    32 x 32 image (16, 1024), each transform's ms (CUDA events)."""
+    import torch
+
+    from tpu_fhe_torch.scheme.ckks_encoder import _host_embed_inverse
+
+    rng = np.random.default_rng(43)
+    for slots in (enc.slots, RESNET_SLOTS):
+        emb = enc.device_embedding_for(slots)
+        shape = (PACKED_BATCH, slots)
+        z = rng.uniform(-1, 1, shape) + 1j * rng.uniform(-1, 1, shape)
+        zt = torch.from_numpy(z).to(emb.device)
+        got = emb.embed_inverse(zt).cpu().numpy()
+        rot = enc._rot_group_for(2 * slots)
+        want = np.stack([_host_embed_inverse(v, 2 * slots, rot) for v in z])
+        err = float(np.max(np.abs(got - want)))
+        ct = torch.from_numpy(want).to(emb.device)
+        back = emb.embed_forward(ct).cpu().numpy()
+        two_n = 4 * slots
+        padded = np.zeros((PACKED_BATCH, two_n), dtype=np.complex128)
+        padded[:, :2 * slots] = want
+        want_fwd = (np.fft.ifft(padded, axis=-1) * two_n)[:, rot % two_n]
+        err_fwd = float(np.max(np.abs(back - want_fwd)))
+        inv_ms = cuda_ms(lambda: emb.embed_inverse(zt), reps=10)
+        fwd_ms = cuda_ms(lambda: emb.embed_forward(ct), reps=10)
+        log(f"[q32 embedding] DeviceEmbedding({slots}) on ({PACKED_BATCH}, {slots}): inverse "
+            f"max|diff| {err:.3e} against the host's float64 FFT (limit {EMBED_TOL}), "
+            f"{inv_ms:.4f} ms; forward {err_fwd:.3e} (limit {EMBED_FWD_TOL}), {fwd_ms:.4f} ms "
+            f"(CUDA events, mean of 10 calls) on {card}")
+        if not (err <= EMBED_TOL and err_fwd <= EMBED_FWD_TOL):
+            fail(f"DeviceEmbedding({slots}) on the card: inverse {err}, forward {err_fwd}")
+
+
+EXAMPLES = ("examples/torch_ckks_basics.py", "examples/torch_ckks_chebyshev.py")
+
+
+def examples_phase(ck: Checker, card: str) -> dict:
+    """Phase 16: the CKKS examples EXAMPLES at their default sizes on the
+    card, each run in this process as python3 runs it (runpy, no
+    arguments), its output printed line by line: a gate that fails exits
+    through the example's SystemExit, and an output that does not end in
+    OK fails the run.  Returns the launches of the two runs (counters set
+    to 0 just before)."""
+    import io
+    import runpy
+
+    import torch
+
+    ck.reset()
+    for script in EXAMPLES:
+        out, argv = io.StringIO(), sys.argv
+        sys.argv = [script]
+        t0 = time.time()
+        try:
+            with contextlib.redirect_stdout(out):
+                runpy.run_path(script, run_name="__main__")
+        except SystemExit as e:
+            fail(f"{script}: {e}")
+        finally:
+            sys.argv = argv
+        torch.cuda.synchronize()
+        lines = out.getvalue().splitlines()
+        for line in lines:
+            log(f"[u64 examples] {script}: {line}")
+        if not lines or lines[-1] != "OK":
+            fail(f"{script} did not end with OK")
+        log(f"[u64 examples] {script}: {time.time() - t0:.1f} s on {card}")
+    launches = ck.launches()
+    log(f"[u64 examples] launches {launches}")
+    return launches
 
 
 # --------------------------------------------------------------------------

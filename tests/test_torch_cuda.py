@@ -11,7 +11,10 @@ plaintexts) on the card against the same slice on the CPU, and one N = 2^12
 bootstrap, one DNN conv and one batch norm, the packed convolution and the
 diagonal FC layer at N = 2^10, and BFV's and BGV's multiply paths at
 N = 2^12, through the kernels against the same through the plain versions;
-K9 over a chunk of the packed convolution's output channels at N = 2^16.
+K9 over a chunk of the packed convolution's output channels at N = 2^16;
+the encoder's device embedding (ops/special_fft.py) on the card against the
+host's float64 embedding, and a device-embedding encode against the host
+path's.
 Every method of the graph-replaying Evaluator equals the eager op through
 its CUDA graph, at small rings and at 2^15, and raises when its capture
 fails.
@@ -1341,6 +1344,64 @@ def test_bfv_bgv_kernels_equal_plain(gpu, case, monkeypatch):
                 g.is_asymmetric) == (wt.chain_index, wt.scale, wt.noise_scale_deg,
                                      wt.correction_factor, wt.is_ntt_form, wt.is_asymmetric)
         assert torch.equal(g.data, wt.data)
+
+
+@pytest.mark.parametrize("slots", [1 << 15, 1024])
+def test_device_embedding_on_card_matches_host(gpu, slots):
+    """DeviceEmbedding on the card against the host's float64 embedding
+    (numpy) on a chunk's 16 rows: the full slot set of N = 2^16 and the
+    DNN's sparse 1024 slots (ResNet-20's 32 x 32 image); inverse within
+    1e-10, forward within 1e-9."""
+    from tpu_fhe_torch.ops.special_fft import DeviceEmbedding
+    from tpu_fhe_torch.scheme.ckks_encoder import _host_embed_inverse
+
+    emb = DeviceEmbedding(slots, gpu)
+    rng = np.random.default_rng(11)
+    z = rng.uniform(-1, 1, (16, slots)) + 1j * rng.uniform(-1, 1, (16, slots))
+    two_n = 4 * slots
+    rot = np.empty(slots, dtype=np.int64)
+    cur = 1
+    for j in range(slots):
+        rot[j], cur = cur, cur * 5 % two_n
+    want = np.stack([_host_embed_inverse(v, 2 * slots, rot) for v in z])
+    got = emb.embed_inverse(torch.from_numpy(z).to(gpu))
+    assert got.device.type == "cuda" and got.dtype == torch.float64
+    np.testing.assert_allclose(got.cpu().numpy(), want, rtol=0, atol=1e-10)
+    padded = np.zeros((16, two_n), dtype=np.complex128)
+    padded[:, :2 * slots] = want
+    back = emb.embed_forward(torch.from_numpy(want).to(gpu)).cpu().numpy()
+    np.testing.assert_allclose(back, (np.fft.ifft(padded, axis=-1) * two_n)[:, rot],
+                               rtol=0, atol=1e-9)
+
+
+@pytest.mark.parametrize("word", ["u64", "q32"])
+def test_device_embed_encode_on_card(gpu, word):
+    """A device-embedding encode on the card (full and sparse slots): its
+    rounded coefficients within one of the host path's, its plaintext the
+    host path's residues of those same coefficients, bit for bit, and its
+    encryption decoding within 1e-6 through either encoder."""
+    from tpu_fhe_torch.ops.ntt import forward_ntt
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+
+    c = FheContext(_dnn_params(word, 4096), device=gpu)
+    enc_dev, enc_host = CkksEncoder(c, device_embed=True), CkksEncoder(c)
+    sk = SecretKey(c, seed=12)
+    level = c.level(1)
+    scale = 2.0 ** 40
+    rng = np.random.default_rng(12)
+    for slots in (c.n // 2, 64):
+        x = rng.uniform(-1, 1, slots).astype(np.complex128)
+        dev = enc_dev._embed_inverse_slots(x, slots) * scale
+        assert dev.device.type == "cuda"
+        host = np.rint(enc_host._embed_inverse_slots(x, slots) * scale)
+        assert np.max(np.abs(torch.round(dev).cpu().numpy() - host)) <= 1
+        pt = enc_dev.encode(x, scale, slots=slots)
+        want = forward_ntt(enc_host._residues(dev.cpu().numpy(), level.base), level.ntt)
+        assert torch.equal(pt.data, want)
+        ct = sk.encrypt_symmetric(pt)
+        for enc in (enc_dev, enc_host):
+            got = enc.decode(sk.decrypt(ct), slots=slots)
+            np.testing.assert_allclose(got.real, x.real, atol=1e-6)
 
 
 def test_evaluator_raises_when_capture_fails(ctx, monkeypatch):

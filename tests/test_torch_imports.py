@@ -7,13 +7,18 @@ with the encoder's QlP forms, and the PPML layers and ResNet-20 of
 models/dnn.py, models/resnet20.py and utils/timer.py, the channel-packed
 convolution and diagonal FC layer of models/conv_packed.py, and BFV and
 BGV with the batch encoder, and the serializer of utils/serialize.py with
-a channel batch through the evaluator) run with both blocked; the module
-walk imports every module of the package, models/conv_packed.py too."""
+a channel batch through the evaluator, and the CKKS examples
+torch_ckks_basics.py, torch_ckks_chebyshev.py and torch_bootstrap_ckks.py
+with the device embedding) run with both blocked; the module walk imports
+every module of the package, models/conv_packed.py and ops/special_fft.py
+too."""
 
 import re
 import subprocess
 import sys
 from pathlib import Path
+
+import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
 PKG = ROOT / "tpu_fhe_torch"
@@ -372,3 +377,24 @@ def test_packed_conv_and_fc_run_with_jax_blocked():
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+@pytest.mark.parametrize("argv", [
+    ["examples/torch_ckks_basics.py", "--cpu", "--n", "2048", "--device-embed"],
+    ["examples/torch_ckks_chebyshev.py", "--cpu"],
+    ["examples/torch_bootstrap_ckks.py", "--cpu", "--logn", "6", "--device-embed"],
+], ids=["ckks_basics", "ckks_chebyshev", "bootstrap_ckks"])
+def test_ckks_examples_run_with_jax_blocked(argv):
+    """The CKKS examples of the port on the CPU at small sizes, each to its
+    final OK, in a process where importing jax or tpu_fhe fails."""
+    code = (
+        "import sys, runpy\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        f"sys.argv = {argv!r}\n"
+        f"runpy.run_path({argv[0]!r}, run_name='__main__')\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.rstrip().endswith("OK")

@@ -19,19 +19,26 @@ chunk; ``channel_batch=1`` runs a batch of one.  The residues are those of
 the reference's channel-at-a-time loop: modular addition is exact in any
 order, a tap whose mask is zero for one channel of a chunk adds an exact
 zero, and a tap that is zero for every channel of the chunk is skipped, as
-the reference skips it.  The chunk's masks of one tap are encoded together
-(``embed_for_slots`` per mask, then one ``encode_coeff_poly``), which rounds
-as ``encode`` does, and multiplied before the next tap's are encoded: a
-chunk holds the masks of at most two taps, B each, so the memory rule
-bounds it whatever the layer's number of input ciphertexts.
+the reference skips it.  The chunk's masks of one tap are built as one
+(B, slots) tensor and encoded together (``embed_rows``, then one
+``encode_coeff_poly``), which rounds as ``encode`` does, and multiplied
+before the next tap's are encoded: a chunk holds the masks of at most two
+taps, B each, so the memory rule bounds it whatever the layer's number of
+input ciphertexts.  With an encoder that embeds on the device
+(``CkksEncoder(ctx, device_embed=True)``) the masks are built on the
+card and never leave it: one DeviceEmbedding pass embeds a tap's B masks;
+a host encoder gets them on the host and embeds each there, as the
+reference does.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 from ..eval import evaluator as ev
 from ..scheme.ciphertext import Ciphertext, Plaintext, unstack_cts
@@ -70,7 +77,37 @@ class PackedConv:
         self.scale = scale if scale is not None else 2.0 ** 40
         self.slots = ctx.n // 2
         self.forced_batch = channel_batch
-        self.mask_seconds = 0.0        # host seconds spent encoding masks
+        self._mask_host = 0.0          # host-clock seconds of mask encoding
+        self._mask_events: list = []   # CUDA event pairs around mask encoding
+
+    @property
+    def mask_seconds(self) -> float:
+        """Seconds spent encoding masks since the last `mask_seconds = 0.0`
+        (see timing_masks); reading it waits for the last masks."""
+        if self._mask_events:
+            self._mask_events[-1][1].synchronize()
+        return self._mask_host + sum(a.elapsed_time(b) for a, b in self._mask_events) / 1e3
+
+    @mask_seconds.setter
+    def mask_seconds(self, value: float):
+        self._mask_host, self._mask_events = value, []
+
+    @contextlib.contextmanager
+    def timing_masks(self):
+        """Adds the enclosed mask encoding to mask_seconds: on a CUDA
+        context the time between CUDA events recorded around it on the
+        current stream, since the work is asynchronous (no synchronize),
+        else the host clock."""
+        if self.ctx.device.type == "cuda":
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            yield
+            end.record()
+            self._mask_events.append((start, end))
+        else:
+            t0 = time.perf_counter()
+            yield
+            self._mask_host += time.perf_counter() - t0
 
     def channel_batch(self, n_ch: int) -> int:
         return channel_batch(self.ctx, n_ch, self.forced_batch)
@@ -151,6 +188,9 @@ class PackedConv:
         interior = np.zeros(lay.block)
         for off in self._rows(lay):
             interior[off:off + lay.in_h] = 1.0
+        # the masks are built where the encoder embeds them
+        interior = torch.from_numpy(interior).to(
+            ctx.device if self.encoder.device_embed else "cpu")
 
         # the tap rotations of each input ct, shared by every output channel
         taps = self._tap_steps(lay)
@@ -172,14 +212,10 @@ class PackedConv:
                 acc = ev.add(ctx, ev.rotate(ctx, acc, span, gk), acc)
                 span <<= 1
             # select block k % n_i of each channel's sum into its output ct
-            sels = []
-            for k in ks:
-                sel = np.zeros(self.slots)
-                b_out = k % lay.n_i
-                sel[b_out * lay.block:(b_out + 1) * lay.block] = interior
-                sels.append(sel)
-            term = ev.rescale_to_next(
-                ctx, ev.multiply_plain(ctx, acc, self._mask_plain(sels, acc.chain_index)))
+            sel = np.zeros((len(ks), lay.n_i))
+            sel[np.arange(len(ks)), np.asarray(ks) % lay.n_i] = 1.0
+            term = ev.rescale_to_next(ctx, ev.multiply_plain(
+                ctx, acc, self._mask_plain(self._block_masks(sel, interior), acc.chain_index)))
             for k, tk in zip(ks, unstack_cts(term, len(ks))):
                 o = k // lay.n_i
                 out_cts[o] = tk if out_cts[o] is None else ev.add(ctx, out_cts[o], tk)
@@ -193,35 +229,37 @@ class PackedConv:
         asked for."""
         c_in = filt.shape[1]
         chain_index = rotated[0][0].chain_index
+        filt = np.asarray(filt, dtype=np.float64)[ks]
         found = False
         for i in range(len(rotated)):
             chans = list(range(i * lay.n_i, min((i + 1) * lay.n_i, c_in)))
             for t, (di, dj, _) in enumerate(self._tap_steps(lay)):
-                w = np.asarray(filt, dtype=np.float64)[ks][:, chans, di, dj]
+                w = filt[:, chans, di, dj]
                 if not w.any():
                     continue
-                masks = []
-                for row in w:
-                    mask = np.zeros(self.slots)
-                    for b, wb in enumerate(row):
-                        if wb != 0.0:
-                            mask[b * lay.block:(b + 1) * lay.block] = wb * interior
-                    masks.append(mask)
                 found = True
-                yield (i, t), self._mask_plain(masks, chain_index)
+                yield (i, t), self._mask_plain(self._block_masks(w, interior), chain_index)
         if not found:
             # every filter of these channels is zero: their sum is an exact
             # zero, from the first tap times zero masks (the reference's
             # loop has no term to rescale and raises)
-            yield (0, 0), self._mask_plain([np.zeros(self.slots) for _ in ks], chain_index)
+            yield (0, 0), self._mask_plain(
+                self._block_masks(np.zeros((len(ks), 1)), interior), chain_index)
 
-    def _mask_plain(self, masks: list, chain_index: int) -> Plaintext:
-        """The masks encoded at the mask scale with one encode_coeff_poly,
-        as one (B, L, N) plaintext."""
-        t0 = time.perf_counter()
-        rows = [self.encoder.embed_for_slots(m, self.slots) for m in masks]
-        poly = self.encoder.encode_coeff_poly(rows, self.scale, chain_index)
-        self.mask_seconds += time.perf_counter() - t0
+    def _block_masks(self, w: np.ndarray, interior: torch.Tensor) -> torch.Tensor:
+        """(B, slots) float64 masks on interior's device: row r carries
+        w[r, b] * interior in block b, zeros past the last block of w."""
+        masks = (torch.from_numpy(w).to(interior.device)[:, :, None] * interior)
+        return torch.nn.functional.pad(masks.reshape(len(w), -1),
+                                       (0, self.slots - w.shape[1] * len(interior)))
+
+    def _mask_plain(self, masks: torch.Tensor, chain_index: int) -> Plaintext:
+        """The (B, slots) masks embedded with one embed_rows and encoded at
+        the mask scale with one encode_coeff_poly, as one (B, L, N)
+        plaintext."""
+        with self.timing_masks():
+            rows = self.encoder.embed_rows(masks, self.slots)
+            poly = self.encoder.encode_coeff_poly(rows, self.scale, chain_index)
         return Plaintext(data=poly, chain_index=chain_index, scale=self.scale)
 
 
@@ -232,16 +270,14 @@ class PackedConv:
 def fc_weight_encode(encoder, weight: np.ndarray, scale: float,
                      chain_index: int = 1) -> list[Plaintext]:
     """Diagonal plaintexts diag_i[j] = W[(i+j) % rows][j], every row in one
-    encode_coeff_rows; rows/cols powers of 2, cols <= numSlots."""
+    embed_rows and one encode_coeff_rows; rows/cols powers of 2, cols <=
+    numSlots."""
     rows, cols = weight.shape
-    slots = encoder.slots
-    j = np.arange(cols)
-    embedded = []
-    for i in range(rows):
-        full = np.zeros(slots)
-        full[:cols] = np.asarray(weight, dtype=np.float64)[(i + j) % rows, j]
-        embedded.append(encoder.embed_for_slots(full, slots))
-    return encoder.encode_coeff_rows(embedded, scale, chain_index)
+    i, j = np.arange(rows)[:, None], np.arange(cols)
+    diags = np.zeros((rows, encoder.slots))
+    diags[:, :cols] = np.asarray(weight, dtype=np.float64)[(i + j) % rows, j]
+    return encoder.encode_coeff_rows(encoder.embed_rows(diags, encoder.slots), scale,
+                                     chain_index)
 
 
 def fc_rotation_indices(rows: int, cols: int, slots: int) -> list[int]:

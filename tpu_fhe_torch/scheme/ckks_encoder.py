@@ -1,6 +1,6 @@
 """CKKS encoder: canonical embedding over the 5^j rotation group.
 
-Port of the default host path of ``tpu_fhe/scheme/ckks_encoder.py``: the
+Port of ``tpu_fhe/scheme/ckks_encoder.py``.  On the default host path the
 complex transform runs on the host in float64 through an FFT of size 2N;
 the rounded coefficients are copied to the context's device once and
 reduced mod each prime there (exact Python integers on the host past
@@ -23,7 +23,21 @@ multiply hoisted ciphertexts; the QlP NTT view is the context's cached
 ``embed_for_slots`` and ``encode_coeff_rows`` split an encode in two for
 the DNN's convolution masks: the unscaled embedding of a slot vector, kept
 per mask, and the scale-round-decompose-NTT of such rows (weight-multiplied
-or not), batched like ``encode_ext_batch``.
+or not), batched like ``encode_ext_batch``.  ``embed_rows`` embeds a stack
+of rows at once (the packed layers' masks), on the device with the device
+embedding.
+
+``CkksEncoder(context, device_embed=True)`` runs the reference's device
+branches (``tpu_fhe/scheme/ckks_encoder.py:51-135``): the embedding is
+``ops/special_fft.py``'s ``DeviceEmbedding`` on the context's device, in
+float64 (the sparse path embeds at 2 * slots and scatters at stride
+N / (2 * slots) there), and the scale, the bound check, the round and the
+residues follow on the device without a copy to the host; decode composes
+on the host as always, then runs the forward transform on the device.  It
+is off by default, as in the reference; the device transform rounds
+differently from the host's FFT, so a rounded coefficient may differ from
+the host path's by one.  ``embed_for_slots`` returns a float64 numpy
+array in both modes.
 """
 
 from __future__ import annotations
@@ -34,16 +48,22 @@ import torch
 from ..core.rns import RNSBase
 from ..ops.modarith import u32_tensor, u64_tensor
 from ..ops.ntt import forward_ntt, inverse_ntt
+from ..ops.special_fft import DeviceEmbedding
 from .ciphertext import Plaintext
 from .context import FheContext
 
 
 class CkksEncoder:
-    def __init__(self, context: FheContext):
+    def __init__(self, context: FheContext, device_embed: bool = False):
+        """`device_embed` embeds on the context's device (DeviceEmbedding)
+        instead of the host's float64 FFT; rings of fewer than 2 slots
+        always embed on the host, as in the reference."""
         self.context = context
         self.n = context.n
         self.slots = self.n // 2
+        self.device_embed = device_embed and self.slots >= 2
         self._rot_cache: dict[int, np.ndarray] = {}
+        self._dev_cache: dict[int, DeviceEmbedding] = {}
         self._ext_cache: dict = {}
         self._q_cache: dict = {}
         self.rot_group = self._rot_group_for(self.n)
@@ -61,28 +81,56 @@ class CkksEncoder:
             self._rot_cache[n_ring] = got
         return got
 
-    def _embed_inverse_slots(self, values: np.ndarray, slots: int) -> np.ndarray:
-        """A `slots`-slot vector -> real coefficient vector (len N).  Full
-        packing (and slots < 2) tiles the vector to N/2 slots; otherwise
-        the ring-degree-2*slots embedding is scattered at stride
+    @property
+    def device_embedding(self) -> DeviceEmbedding:
+        """The special FFT of the full slot set on the context's device."""
+        return self.device_embedding_for(self.slots)
+
+    def device_embedding_for(self, slots: int) -> DeviceEmbedding:
+        """The special FFT of `slots` slots (ring degree 2 * slots) on the
+        context's device, built once per slot count."""
+        got = self._dev_cache.get(slots)
+        if got is None:
+            got = self._dev_cache[slots] = DeviceEmbedding(slots, self.context.device)
+        return got
+
+    def _embed_inverse_slots(self, values, slots: int):
+        """A `slots`-slot vector (or a stack of them) -> real coefficient
+        rows (..., N): a float64 numpy array on the host path, a float64
+        tensor on the context's device with device_embed.  Full packing
+        (and slots < 2) tiles the vector to N/2 slots; otherwise the
+        ring-degree-2*slots embedding is scattered at stride
         N / (2 * slots), the reference's sparse path."""
         if slots > self.slots:
             raise ValueError(f"too many values for ring degree: {slots} slots > "
                              f"{self.slots} available (N={self.n})")
+        dev = self.device_embed
+        if dev:
+            values = torch.as_tensor(values).to(self.context.device).to(torch.complex128)
         if slots == self.slots or slots < 2:
-            return self._embed_inverse(np.tile(values, self.slots // max(slots, 1)))
-        small = _host_embed_inverse(values, 2 * slots, self._rot_group_for(2 * slots))
-        out = np.zeros(values.shape[:-1] + (self.n,), dtype=np.float64)
+            reps = self.slots // max(slots, 1)
+            return self._embed_inverse(values.tile((reps,)) if dev else np.tile(values, reps))
+        if dev:
+            small = self.device_embedding_for(slots).embed_inverse(values)
+            out = small.new_zeros(values.shape[:-1] + (self.n,))
+        else:
+            small = _host_embed_inverse(values, 2 * slots, self._rot_group_for(2 * slots))
+            out = np.zeros(values.shape[:-1] + (self.n,), dtype=np.float64)
         out[..., ::self.n // (2 * slots)] = small
         return out
 
-    def _embed_inverse(self, values: np.ndarray) -> np.ndarray:
-        """slots (complex, len N/2) -> real coefficient vector (len N):
-        m_t = (2/N) Re(sum_j z_j zeta^{-e_j t}), one FFT of size 2N."""
+    def _embed_inverse(self, values):
+        """slots (complex, len N/2) -> real coefficient vector (len N), in
+        the form of _embed_inverse_slots; on the host m_t = (2/N) Re(sum_j
+        z_j zeta^{-e_j t}), one FFT of size 2N."""
+        if self.device_embed:
+            return self.device_embedding.embed_inverse(values)
         return _host_embed_inverse(values, self.n, self.rot_group)
 
     def _embed_forward(self, coeffs: np.ndarray) -> np.ndarray:
         """real coefficients (len N) -> slot values (complex, len N/2)."""
+        if self.device_embed:
+            return self.device_embedding.embed_forward(coeffs).cpu().numpy()
         two_n = 2 * self.n
         padded = np.zeros(two_n, dtype=np.complex128)
         padded[: self.n] = coeffs
@@ -114,22 +162,23 @@ class CkksEncoder:
         if slots > self.slots:
             raise ValueError("too many values for ring degree")
         coeffs = self._embed_inverse_slots(values, slots) * scale
-        amax = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
-        if int(amax).bit_length() + 2 >= level.base.big_modulus.bit_length():
+        if int(_amax(coeffs)).bit_length() + 2 >= level.base.big_modulus.bit_length():
             raise ValueError("encoded values are too large for the modulus")
         return Plaintext(data=forward_ntt(self._residues(coeffs, level.base), level.ntt),
                          chain_index=chain_index, scale=scale)
 
-    def _residues(self, coeffs: np.ndarray, base: RNSBase) -> torch.Tensor:
+    def _residues(self, coeffs, base: RNSBase) -> torch.Tensor:
         """round(float64 coeffs) (..., N) -> their (..., L, N) residues mod
         each prime of `base`, in the context's word on its device.  A
         float64's integer value is exact, so for |c| < 2^62 the round lands
-        exactly in int64: one host-to-device copy, then floor-mod on the
-        device.  Larger coefficients take _round_decompose's exact Python
-        integers on the host."""
+        exactly in int64: numpy coefficients are rounded on the host and
+        copied to the device once, a tensor's are rounded where they lie;
+        then floor-mod on the device.  Larger coefficients take
+        _round_decompose's exact Python integers on the host."""
         ctx = self.context
-        amax = float(np.max(np.abs(coeffs))) if coeffs.size else 0.0
-        if amax >= float(1 << 62):
+        if _amax(coeffs) >= float(1 << 62):
+            if isinstance(coeffs, torch.Tensor):
+                coeffs = coeffs.cpu().numpy()
             flat = coeffs.reshape(-1, coeffs.shape[-1])
             planes = np.stack([_round_decompose(c, base) for c in flat])
             word = u32_tensor if ctx.is_q32 else u64_tensor
@@ -138,7 +187,10 @@ class CkksEncoder:
         if primes is None:
             primes = self._q_cache[base.values] = torch.tensor(
                 base.values, dtype=torch.int64, device=ctx.device).unsqueeze(-1)
-        x = torch.from_numpy(np.rint(coeffs).astype(np.int64)).to(ctx.device)
+        if isinstance(coeffs, torch.Tensor):
+            x = torch.round(coeffs).to(torch.int64)   # half to even, as np.rint
+        else:
+            x = torch.from_numpy(np.rint(coeffs).astype(np.int64)).to(ctx.device)
         res = torch.remainder(x.unsqueeze(-2), primes)
         return res.to(torch.int32) if ctx.is_q32 else res
 
@@ -151,8 +203,9 @@ class CkksEncoder:
     def encode_ext_batch(self, values_list, scale: float, chain_index: int = 1,
                          slots: int | None = None,
                          noise_scale_deg: int = 1) -> list[Plaintext]:
-        """encode_ext of every vector of `values_list`, with one
-        host-to-device copy and one batched forward NTT for the lot."""
+        """encode_ext of every vector of `values_list`, with one batched
+        forward NTT for the lot (and one host-to-device copy on the host
+        path)."""
         rows = []
         for values in values_list:
             values = np.asarray(values, dtype=np.complex128).ravel()
@@ -160,13 +213,16 @@ class CkksEncoder:
             if s & (s - 1):
                 raise ValueError("slot count must be a power of two")
             rows.append(self._embed_inverse_slots(values, s))
+        if self.device_embed:
+            rows = torch.stack(rows)
         return self.encode_coeff_rows(rows, scale, chain_index, ext=True,
                                       noise_scale_deg=noise_scale_deg)
 
     def embed_for_slots(self, values, slots: int) -> np.ndarray:
         """The inverse embedding of a `slots`-slot vector, unscaled: the
-        coefficient rows ``encode`` would scale and round.  It is linear,
-        so encode(w * v, s) == round(embed_for_slots(v, slots) * (w * s))."""
+        coefficient rows ``encode`` would scale and round, as a float64
+        numpy array in both modes.  It is linear, so encode(w * v, s) ==
+        round(embed_for_slots(v, slots) * (w * s))."""
         values = np.asarray(values, dtype=np.complex128).ravel()
         if len(values) < slots:
             values = np.pad(values, (0, slots - len(values)))
@@ -174,13 +230,26 @@ class CkksEncoder:
             raise ValueError("slot count must be a power of two")
         if slots > self.slots:
             raise ValueError("too many values for ring degree")
-        return self._embed_inverse_slots(values, slots)
+        got = self._embed_inverse_slots(values, slots)
+        return got.cpu().numpy() if self.device_embed else got
+
+    def embed_rows(self, values, slots: int):
+        """``embed_for_slots`` of each row of `values` (R, slots), in the
+        encoder's form, for ``encode_coeff_poly``: with device_embed one
+        DeviceEmbedding pass over the rows, an (R, N) float64 tensor on the
+        context's device; on the host path each row's embedding, an (R, N)
+        float64 numpy array."""
+        if slots & (slots - 1):
+            raise ValueError("slot count must be a power of two")
+        if self.device_embed:
+            return self._embed_inverse_slots(values, slots)
+        return np.stack([self.embed_for_slots(v, slots) for v in np.asarray(values)])
 
     def encode_coeff_rows(self, rows, scale: float, chain_index: int, ext: bool = False,
                           noise_scale_deg: int = 1) -> list[Plaintext]:
         """Plaintexts of pre-embedded coefficient rows (``embed_for_slots``
-        outputs, optionally weight-multiplied): scale, round, RNS-decompose
-        and forward-NTT, all rows in one host-to-device copy and one batched
+        outputs, optionally weight-multiplied, or ``embed_rows``' rows):
+        scale, round, RNS-decompose and forward-NTT, all rows in one batched
         NTT.  With `ext` at the extended basis QlP (for multiplying hoisted
         ciphertexts), else at the level's basis."""
         poly = self.encode_coeff_poly(rows, scale, chain_index, ext)
@@ -190,13 +259,18 @@ class CkksEncoder:
     def encode_coeff_poly(self, rows, scale: float, chain_index: int,
                           ext: bool = False) -> torch.Tensor:
         """encode_coeff_rows' planes as one (R, L, N) NTT-form tensor, row r
-        the plaintext data of rows[r]."""
+        the plaintext data of rows[r].  `rows` are numpy rows, scaled and
+        rounded on the host and copied once, or an (R, N) float64 tensor on
+        the context's device, scaled and rounded there."""
         if ext:
             base, ntt = self._ext_tables(chain_index)
         else:
             level = self.context.level(chain_index)
             base, ntt = level.base, level.ntt
-        coeffs = np.stack([np.asarray(r) * scale for r in rows])
+        if isinstance(rows, torch.Tensor):
+            coeffs = rows * scale
+        else:
+            coeffs = np.stack([np.asarray(r) * scale for r in rows])
         return forward_ntt(self._residues(coeffs, base), ntt)
 
     def decode(self, pt: Plaintext, slots: int | None = None) -> np.ndarray:
@@ -208,6 +282,11 @@ class CkksEncoder:
         coeffs = _compose_signed(residues, level.base)
         vals = self._embed_forward(np.asarray(coeffs, dtype=np.float64) / pt.scale)
         return vals if slots is None else vals[:slots]
+
+
+def _amax(coeffs) -> float:
+    """max |c| of a numpy array or a tensor."""
+    return float(abs(coeffs).max())
 
 
 def _host_embed_inverse(values: np.ndarray, n_ring: int,
