@@ -120,12 +120,14 @@ plaintexts freed before the second's are made):
     other than 4 levels after;
 11. at N = 2^12 (level budget (2, 2), the default sine set, three levels
     after), a two-iteration dense Meta-BTS (whose first iteration is the
-    dense bootstrap) and the sparse bootstrap (64 slots) through the
-    kernels, each bit-identical to the same through the plain versions and
+    dense bootstrap) with every distinct kernel call held against its plain
+    version as it comes, and the sparse bootstrap (64 slots) through the
+    kernels bit-identical to the same through the plain versions, each
     decoding to more than 10 bits; then two channels stacked into one
-    (2, 2, L, N) ciphertext and bootstrapped at once, bit-identical to the
-    same through the plain versions and to each channel's own bootstrap,
-    metadata included, with the launches of one channel's bootstrap.
+    (2, 2, L, N) ciphertext and bootstrapped at once, every distinct kernel
+    call held against its plain version as it comes, bit-identical to each
+    channel's own bootstrap, metadata included, with the launches of one
+    channel's bootstrap.
 
 Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
 (tpu_fhe_torch/models/dnn.py, resnet20.py):
@@ -157,7 +159,7 @@ Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
     sections and ms per channel), the launches of each kernel (counters
     set to 0 first) beside the per-channel inference's, ms per bootstrap
     of one channel and of a chunk, and a profile of a chunk's
-    relu_composite (also per channel); a chunk of 4 channels'
+    relu_composite (also per channel); a chunk of 2 channels'
     relu_composite batched equal to the same channels one at a time, bit
     for bit; the output through save_tensor_ct / load_tensor_ct in a
     temporary directory, exact; then
@@ -229,10 +231,29 @@ Then:
     their default sizes (N = 2048 and 512, the u64 plan), each to its
     final OK with every gate passed, and their launches.
 
+Then the sharded paths (tpu_fhe_torch/parallel/):
+
+17. 4 ranks spawned on the one card (cuda:0), joined by gloo through a
+    file rendezvous, every CUDA tensor of a collective through host
+    memory (so it shows the paths right on the card and measures no
+    scaling): multiply -> relinearize -> rescale on a 1 x 4 limb mesh at
+    the u64 plan's N = 2^15 configuration and at the q32 plan's
+    (rescale_composite), the same over a stacked batch of 4 on 2 x 2, the
+    4-step NTT (forward and inverse), relinearize and rotate on a 1 x 4
+    coeff mesh, and the flagship bootstrap's first C2S BSGS level (phase
+    10's contexts, N = 2^16) limb-sharded on both plans.  State is drawn
+    once on rank 0 and broadcast.  Each result is gathered and held on
+    rank 0 against the one-process path through the kernels, bit for bit
+    with its metadata; every distinct wrapper call of every rank is held
+    against its plain version as it comes.  Per path: the collectives of
+    each rank by kind and bytes, ms per op in each rank beside the
+    one-process ms (host clock), the launches summed over the ranks
+    (every kernel of the path must launch), and each rank's peak memory.
+
 Each phase's seconds, then the kernels line (every kernel of both plans,
 its launches summed over the requests, rotations, EvalMod, raise_mod, the
-flagship bootstrap, the DNN layers, the ResNet-20 inference, phase 14 and
-the packed layers and the examples, its
+flagship bootstrap, the DNN layers, the ResNet-20 inference, phase 14,
+the packed layers, the examples and the ranks of phase 17, its
 headline numbers and under "checks" each shape it was held at with that
 shape's ms, plain ms and bound) and the line {"ok": true, "device":
 {...}}.
@@ -512,6 +533,12 @@ def main() -> int:
     plans[0]["examples"] = examples_phase(plans[0]["ck"], card)
     plans[1]["examples"] = dict.fromkeys(plans[1]["launches"], 0)
     seconds["16"] = time.time() - t0
+    # -- 17. the sharded paths in 4 ranks on the card (gloo)
+    t0 = time.time()
+    par = parallel_phase(card, [plan["ck"] for plan in plans])
+    for plan in plans:
+        plan["parallel"] = {name: par.get(name, 0) for name in plan["launches"]}
+    seconds["17"] = time.time() - t0
     log("[time] seconds by phase: " + ", ".join(f"{k} {v:.1f}" for k, v in seconds.items()))
     log(f"[profile] the fills leading each window: {MARKERS}")
     line = []
@@ -520,6 +547,7 @@ def main() -> int:
                                  + plan["boot"][name] + plan["dnn"][name]
                                  + plan["resnet"][name] + plan["bfv"][name]
                                  + plan["packed"][name] + plan["examples"][name]
+                                 + plan["parallel"][name]
                                  for name, count in plan["launches"].items()})
     print(json.dumps({"kernels": line}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
@@ -1253,16 +1281,19 @@ def swapped_wrappers(make):
     """Within this block the modules that call the path's wrappers
     (path_wrappers) call make(name, wrapper) in their place: the CKKS
     evaluator, auto, the DNN layers, both encoders, BFV's and BGV's schemes
-    and evaluators, the keys, and ops/bconv.py's BEHZ/HPS conversions, which
-    call bconv_matmul."""
+    and evaluators, the keys, ops/bconv.py's BEHZ/HPS conversions, which
+    call bconv_matmul, and the limb-sharded keyswitch's ends and the
+    rescale's dropped limbs (parallel/limb_eval.py; the rest of parallel/
+    calls the evaluator's)."""
     from tpu_fhe_torch.eval import auto, bfv_eval, bgv_eval, evaluator as ev
     from tpu_fhe_torch.models import dnn
     from tpu_fhe_torch.ops import bconv
+    from tpu_fhe_torch.parallel import limb_eval
     from tpu_fhe_torch.scheme import batch_encoder, bfv, bgv, ckks_encoder, keys
 
     saved = [(mod, name, getattr(mod, name))
              for mod in (ev, auto, dnn, ckks_encoder, bfv_eval, bgv_eval, bfv, bgv,
-                         batch_encoder, keys, bconv)
+                         batch_encoder, keys, bconv, limb_eval)
              for name in path_wrappers() if hasattr(mod, name)]
     for mod, name, fn in saved:
         setattr(mod, name, make(name, fn))
@@ -2181,10 +2212,12 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
     """Phase 11: at N = 2^12 (examples/bootstrap_ckks.py --logn 12 --levels-after
     3: level budget (2, 2), the default sine set K = 512, r = 6, degree 88),
     a two-iteration dense Meta-BTS (its first iteration is the dense
-    bootstrap, which no longer runs alone: phase 14 took its time) and the
-    sparse bootstrap (64 slots) through the kernels, each bit-identical to the
-    same through the plain versions, each decoding to at least
-    BOOT11_MIN_BITS, and the Meta-BTS not returning its input.  The example takes the sparse set
+    bootstrap, which no longer runs alone: phase 14 took its time) with
+    every distinct wrapper call held against its plain version as it comes
+    (recorded_calls), and the sparse bootstrap (64 slots) through the
+    kernels bit-identical to the same through the plain versions, each
+    decoding to at least BOOT11_MIN_BITS, and the Meta-BTS not returning
+    its input.  The example takes the sparse set
     K = 28, r = 3, degree 44 up to 2^13, but with a uniform ternary secret
     the integer part of the raised plaintext passes K from 2^11 on and the
     sine's Chebyshev series is evaluated outside [-1, 1]: the output does not
@@ -2207,8 +2240,18 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
             precision = META_PRECISION if iterations > 1 else 0
             what = (f"N=2^12 bootstrap, {slots} slots" +
                     (f", Meta-BTS {iterations} iterations" if iterations > 1 else ""))
-            out, = same_as_plain(tag, what, ck, lambda: [
-                boot.eval_bootstrap(ct, slots, iterations, precision)])
+            if iterations > 1:
+                # held call by call: a whole second pass through the plain
+                # versions took about 50 s of the u64 plan's phase
+                calls = {}
+                ck.reset()
+                with recorded_calls(calls, ck):
+                    out = boot.eval_bootstrap(ct, slots, iterations, precision)
+                torch.cuda.synchronize()
+                path_checks(tag, what, ck, calls, ck.launches())
+            else:
+                out, = same_as_plain(tag, what, ck, lambda: [
+                    boot.eval_bootstrap(ct, slots, iterations, precision)])
             if out is ct:
                 fail(f"{tag} {what}: returned its input")
             bits = precision_bits(enc.decode(sk.decrypt(out), slots=slots).real, x)
@@ -2225,10 +2268,13 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
 def batched_bootstrap(tag: str, ck: Checker, boot, enc, sk, slots: int, first: tuple) -> None:
     """Phase 11's batch: `first` (values, input, its bootstrap) and one more
     channel stacked into one (2, 2, L, N) ciphertext and bootstrapped at
-    once, bit-identical, metadata included, to the same through the plain
-    versions and to the two channels' own bootstraps, each channel decoding
-    to more than BOOT11_MIN_BITS; the batch's launches beside one
-    channel's."""
+    once with every distinct wrapper call held against its plain version as
+    it comes (recorded_calls, each kernel's widest timed), bit-identical,
+    metadata included, to the two channels' own bootstraps, each channel
+    decoding to more than BOOT11_MIN_BITS; the batch's launches beside one
+    channel's.  (A whole second pass through the plain versions took about
+    40 s of the u64 plan's phase; the first channel's own bootstrap is held
+    against one.)"""
     import torch
 
     from tpu_fhe_torch.boot.bootstrap import precision_bits
@@ -2241,14 +2287,13 @@ def batched_bootstrap(tag: str, ck: Checker, boot, enc, sk, slots: int, first: t
     one = ck.launches()
     what = f"N=2^12 bootstrap, {slots} slots, a batch of 2"
 
-    def run():
-        return [boot.eval_bootstrap(stack_cts([ct1, ct2]), slots)]
-
+    calls = {}
     ck.reset()
-    got = run()
+    with recorded_calls(calls, ck):
+        batch = boot.eval_bootstrap(stack_cts([ct1, ct2]), slots)
+    torch.cuda.synchronize()
     launches = ck.launches()
-    plain_matches(tag, what, ck, run, got)
-    batch = got[0]
+    path_checks(tag, what, ck, calls, launches)
     if tuple(batch.data.shape[:2]) != (2, 2):
         fail(f"{tag} {what}: data {tuple(batch.data.shape)}")
     for i, (x, out, c) in enumerate(zip((x1, x2), (out1, out2), unstack_cts(batch, 2))):
@@ -2277,7 +2322,7 @@ RESNET_N, RESNET_WIDTH, RESNET_PLANES = 1 << 16, 32, (16, 32, 64)
 RESNET_LEVELS_AFTER = 11                 # examples/resnet20_infer.py:104
 RESNET_SLOTS = RESNET_WIDTH ** 2
 RESNET_MAX_ERR = 1e-2
-RESNET_CHECK_BATCH = 4                   # channels of phase 13's batched-vs-per-channel check
+RESNET_CHECK_BATCH = 2                   # channels of phase 13's batched-vs-per-channel check
 # phase 15: ResNet-20's three convolution shapes (channels, width) and its
 # classifier (classes, features, rows padded to a power of two), packed
 PACKED_LAYERS = ((16, 32), (32, 16), (64, 8))
@@ -3262,6 +3307,387 @@ def bfv_bgv_phase(ck: Checker, card: str) -> dict:
         f"versions, bit for bit, metadata included, in {time.time() - t0:.1f} s")
     log(f"[u64 bfv/bgv] phase 14 in {time.time() - t_phase:.1f} s")
     return launches
+
+
+# --------------------------------------------------------------------------
+# phase 17: the sharded paths (tpu_fhe_torch/parallel/) in 4 ranks on the card
+# --------------------------------------------------------------------------
+
+PAR_WORLD = 4
+PAR_REPS = 3                             # timed calls of each sharded and one-process op
+PAR_SEED = 1717
+# the kernels each path must launch (summed over the ranks)
+PAR_KERNELS = {
+    "limb u64": ("ntt_inv", "bconv_mxu", "ntt_fwd", "key_inner_prod_shoup", "ntt_fwd_landing"),
+    "batch x limb u64": ("ntt_inv", "bconv_mxu", "ntt_fwd", "key_inner_prod_shoup",
+                         "ntt_fwd_landing"),
+    "limb q32": ("ntt_inv32", "bconv32", "ntt_fwd32", "key_inner_prod_shoup32",
+                 "ntt_fwd_landing32"),
+    "coeff u64": ("bconv_mxu", "key_inner_prod_shoup", "key_inner_prod"),
+    "bsgs u64": ("ntt_inv", "bconv_mxu", "ntt_fwd", "key_inner_prod", "ntt_fwd_landing"),
+    "bsgs q32": ("ntt_inv32", "bconv32", "ntt_fwd32", "key_inner_prod32", "ntt_fwd_landing32"),
+}
+
+
+def parallel_phase(card: str, checkers: list) -> dict:
+    """Phase 17: the port's sharded paths in PAR_WORLD ranks, every rank on
+    cuda:0, joined by gloo through a file rendezvous (the card's machine has
+    one card, and NCCL takes one rank a device): under gloo every CUDA
+    tensor a collective is given goes through host memory.  It measures no
+    scaling across cards.  The paths (parallel_rank): multiply ->
+    relinearize -> rescale on a 1 x 4 limb mesh at bench.py's u64 config
+    and on the q32 one (rescale_composite), the same over a stacked batch
+    of 4 on 2 x 2, the 4-step NTT, the keyswitch and rotate_4step on a 1 x 4
+    coeff mesh, and the flagship bootstrap's first C2S BSGS level (N =
+    2^16) limb-sharded.  Each is gathered and held on rank 0 against the
+    one-process path through the kernels, bit for bit with its metadata,
+    and run in every rank with every wrapper call held against its plain
+    version (recorded_calls).  Prints per path the collectives, ms per op
+    in each rank beside the one-process ms, the launches and each rank's
+    peak memory; the shapes held join each kernel's "path_shapes" in the
+    plans' Checkers.  Returns the launches summed over the ranks, by
+    kernel."""
+    import tempfile
+
+    import torch
+
+    from tpu_fhe_torch.parallel.sharding import run_ranks
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        try:
+            reports = run_ranks(parallel_rank, PAR_WORLD, (card,), init_file=f"{tmp}/init",
+                                backend="gloo", timeout_s=600)
+        except RuntimeError as e:
+            fail(f"phase 17: {e}")
+    log(f"[parallel] {PAR_WORLD} ranks sharing one card ({card}), gloo (every CUDA tensor of a "
+        f"collective through host memory): world ran in {time.time() - t0:.1f} s")
+    total, shapes = {}, {}
+    for path, want in PAR_KERNELS.items():
+        first = reports[0][path]
+        if not first["equal"]:
+            fail(f"phase 17 {path}: the sharded result differs from the one-process path")
+        summed = {}
+        for rep in reports:
+            for name, count in rep[path]["launches"].items():
+                summed[name] = summed.get(name, 0) + count
+            for name, count in rep[path]["held"].items():
+                shapes[name] = shapes.get(name, 0) + count
+        missing = [k for k in want if not summed.get(k)]
+        if missing:
+            fail(f"phase 17 {path}: kernels of the path not launched: {missing}")
+        for name, count in summed.items():
+            total[name] = total.get(name, 0) + count
+        for what, line in first["lines"]:
+            log(f"[parallel {path}] {what}: {line}")
+        for key in first["ms"]:
+            log(f"[parallel {path}] {key}: ms per op by rank "
+                + ", ".join(f"{rep[path]['ms'][key]:.3f}" for rep in reports)
+                + (f"; one process {first['one_ms'][key]:.3f}" if key in first["one_ms"] else ""))
+        log(f"[parallel {path}] collectives per rank: "
+            + "; ".join(f"rank {i}: {rep[path]['counts']}" for i, rep in enumerate(reports)))
+        log(f"[parallel {path}] distinct wrapper calls held == plain versions by rank: "
+            + ", ".join(str(sum(rep[path]["held"].values())) for rep in reports)
+            + f"; launches summed over the ranks: {dict(sorted((k, v) for k, v in summed.items() if v))}")
+    for ck in checkers:
+        for name, count in shapes.items():
+            if name in ck.report:
+                ck.report[name].setdefault("path_shapes", {})["phase 17, every rank"] = count
+    log("[parallel] peak device memory by rank (GiB): "
+        + ", ".join(f"{rep['peak_gib']:.2f}" for rep in reports)
+        + f"; together {sum(rep['peak_gib'] for rep in reports):.2f}")
+    return total
+
+
+def parallel_rank(rank: int, world: int, card: str) -> dict:
+    """One rank of phase 17 (see parallel_phase); returns its report."""
+    import torch
+
+    from tpu_fhe_torch.ops import bconv, ks, ntt
+
+    torch.cuda.set_device(0)
+    torch.cuda.reset_peak_memory_stats()
+    ck = Checker([ntt.NTT_FWD, ntt.NTT_FWD_LANDING, ntt.NTT_INV, bconv.BCONV_MXU, bconv.BCONV,
+                  ks.KS_SHOUP, ks.KS, ntt.NTT_FWD32, ntt.NTT_FWD_LANDING32, ntt.NTT_INV32,
+                  bconv.BCONV32, ks.KS_SHOUP32, ks.KS32])
+    report = {}
+    report.update(par_limb_paths(rank, "u64", ck))
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.update(par_limb_paths(rank, "q32", ck))
+    gc.collect()
+    torch.cuda.empty_cache()
+    for plan in ("u64", "q32"):
+        report[f"bsgs {plan}"] = par_bsgs(rank, plan, ck)
+        gc.collect()
+        torch.cuda.empty_cache()
+    report["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return report
+
+
+def par_recorded(path: str, ck: Checker, run):
+    """run() once with every wrapper call held against its plain version as
+    it comes (recorded_calls); -> (its result, the launches, the rank's
+    collectives, the distinct shapes held)."""
+    import torch
+
+    from tpu_fhe_torch.parallel import collectives as coll
+
+    calls = {}
+    torch.cuda.synchronize()
+    ck.reset()
+    coll.reset_counts()
+    with recorded_calls(calls, ck):
+        out = run()
+    torch.cuda.synchronize()
+    launches, counts = ck.launches(), coll.counts()
+    if calls["count"] != sum(launches.values()):
+        fail(f"phase 17 {path}: {calls['count']} wrapper calls recorded against "
+             f"{sum(launches.values())} launches")
+    missing = [k for k, v in launches.items() if v and k not in calls["held"]]
+    if missing:
+        fail(f"phase 17 {path}: launched but never held against the plain version: {missing}")
+    return out, launches, counts, {k: v[0] for k, v in calls["held"].items()}
+
+
+def par_ms(run, reps: int = PAR_REPS) -> float:
+    """Host clock around `reps` calls after a warm-up, each ending in a
+    synchronize (a sharded call waits for the other ranks in its
+    collectives)."""
+    import torch
+
+    run()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / reps * 1e3
+
+
+def par_same(got, want) -> bool:
+    import torch
+
+    return torch.equal(got.data, want.data) and _meta(got) == _meta(want)
+
+
+def par_one_process(rank: int, fn):
+    """fn() on rank 0 alone while the others wait; None on the others."""
+    import torch.distributed as dist
+
+    out = fn() if rank == 0 else None
+    dist.barrier()
+    return out
+
+
+def par_limb_paths(rank: int, plan: str, ck: Checker) -> dict:
+    """The limb mesh (and, on u64, batch x limb and the coeff mesh) at
+    phase 3's N = 2^15 configuration of `plan`."""
+    from tpu_fhe_torch.core.modulus import CoeffModulus
+    from tpu_fhe_torch.core.params import EncryptionParameters, SchemeType
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.parallel import limb_eval as le, sharding as sh
+    from tpu_fhe_torch.scheme.ciphertext import stack_cts
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.context import FheContext
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    q32 = plan == "q32"
+    if q32:
+        special = COMPOSITE["special_count"]
+        params = EncryptionParameters(SchemeType.ckks, N, tuple(CoeffModulus.create_composite(
+            N, **COMPOSITE)), special_modulus_size=special, composite_degree=2,
+            allow_insecure=True)
+        scale, limbs = SCALE32, 2
+    else:
+        params = EncryptionParameters(SchemeType.ckks, N, tuple(CoeffModulus.create(N, BITS)),
+                                      special_modulus_size=SPECIAL, allow_insecure=True)
+        scale, limbs = SCALE, 1
+    ctx = FheContext(params)
+    dev = ctx.device
+    count = 1 + 4 * (not q32)
+    drawn = None
+    if rank == 0:              # drawn once, on rank 0, then broadcast
+        sk, enc = SecretKey(ctx, seed=PAR_SEED), CkksEncoder(ctx)
+        rng = np.random.default_rng(PAR_SEED)
+        cts = [sk.encrypt_symmetric(enc.encode(rng.uniform(-1, 1, N // 2), scale))
+               for _ in range(count)]
+        drawn = (sk.relin_key(), cts, None if q32 else sk.galois_key([1]))
+    rlk = sh.broadcast_relin_key(drawn[0] if drawn else None, dev)
+    cts = [sh.broadcast_ciphertext(drawn[1][j] if drawn else None, dev) for j in range(count)]
+    out = {}
+
+    def one_step(c, key):
+        prod = ev.relinearize(ctx, ev.multiply(ctx, c, c), key)
+        return ev.rescale_composite(ctx, prod, 2) if q32 else ev.rescale_to_next(ctx, prod)
+
+    mesh = sh.make_mesh(1, PAR_WORLD)
+    sctx = le.LimbShardContext(ctx, mesh)
+    rlk_s = sh.shard_relin_key(ctx, rlk, mesh)
+    s = sh.shard_ciphertext(ctx, cts[0], mesh)
+    prod_s = ev.multiply(sctx, s, s)
+    got, launches, counts, held = par_recorded(
+        f"limb {plan}", ck, lambda: le.mul_relin_rescale(sctx, s, s, rlk_s, limbs))
+    whole = sh.gather(ctx, got, mesh)
+    want = par_one_process(rank, lambda: one_step(cts[0], rlk))
+    ms = {"multiply -> relinearize -> rescale": par_ms(
+        lambda: le.mul_relin_rescale(sctx, s, s, rlk_s, limbs)),
+        "relinearize": par_ms(lambda: ev.relinearize(sctx, prod_s, rlk_s))}
+    prod = ev.multiply(ctx, cts[0], cts[0])
+    one_ms = par_one_process(rank, lambda: {
+        "multiply -> relinearize -> rescale": par_ms(lambda: one_step(cts[0], rlk)),
+        "relinearize": par_ms(lambda: ev.relinearize(ctx, prod, rlk))})
+    out[f"limb {plan}"] = dict(
+        equal=rank != 0 or par_same(whole, want), launches=launches, counts=counts, held=held,
+        ms=ms, one_ms=one_ms or {},
+        lines=[("1 x 4 limb mesh", f"N=2^{N.bit_length() - 1}, {params.size_Q} + "
+                f"{params.size_P} limbs, {sctx.bq} + {sctx.bp} rows a rank; chain index "
+                f"{cts[0].chain_index} -> {whole.chain_index}, gathered == one process bit for "
+                f"bit with its metadata: {rank != 0 or par_same(whole, want)}")])
+    if q32:
+        return out
+
+    # batch x limb: the stacked batch of 4 over 2 x 2
+    mesh22 = sh.make_mesh(2, PAR_WORLD // 2)
+    sctx22 = le.LimbShardContext(ctx, mesh22)
+    rlk22 = sh.shard_relin_key(ctx, rlk, mesh22)
+    batch = stack_cts(cts[1:])
+    b = sh.shard_ciphertext(ctx, batch, mesh22, batched=True)
+    got, launches, counts, held = par_recorded(
+        "batch x limb", ck, lambda: le.mul_relin_rescale(sctx22, b, b, rlk22))
+    whole = sh.gather(ctx, got, mesh22, batched=True)
+    want = par_one_process(rank, lambda: one_step(batch, rlk))
+    equal = rank != 0 or par_same(whole, want)
+    out["batch x limb u64"] = dict(
+        equal=equal, launches=launches, counts=counts, held=held,
+        ms={"multiply -> relinearize -> rescale of the batch": par_ms(
+            lambda: le.mul_relin_rescale(sctx22, b, b, rlk22))},
+        one_ms=par_one_process(rank, lambda: {
+            "multiply -> relinearize -> rescale of the batch": par_ms(
+                lambda: one_step(batch, rlk))}) or {},
+        lines=[("2 x 2 batch x limb mesh", f"a stacked batch of 4, 2 a rank, gathered == one "
+                f"process bit for bit: {equal}")])
+    del mesh22, sctx22, rlk22, b
+    out["coeff u64"] = par_coeff(rank, ctx, rlk, cts[0], drawn[2] if drawn else None, ck)
+    return out
+
+
+def par_coeff(rank: int, ctx, rlk, ct, gk, ck: Checker) -> dict:
+    """The 1 x 4 coeff mesh at the u64 config: the 4-step NTT (N1 = 2^7, N2
+    = 2^8) on the (30, 2^15) ciphertext component against K1 and K2, the
+    keyswitch (relinearize_4step) and rotate_4step by 1."""
+    import torch
+
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.ops.ntt import forward_ntt, inverse_ntt
+    from tpu_fhe_torch.parallel import coeff_eval as ce, collectives as coll, ntt4step as n4
+    from tpu_fhe_torch.parallel import sharding as sh
+
+    dev = ctx.device
+    gk = sh.broadcast_galois_key(gk, dev)
+    mesh = sh.coeff_mesh(1, PAR_WORLD)
+    level = ctx.level(ct.chain_index)
+    x_ntt = ct.data[0]
+    x_coeff = inverse_ntt(x_ntt.contiguous(), level.ntt)
+    rows, cols = n4.rows_shard(x_ntt, mesh), n4.cols_shard(x_coeff, mesh)
+    coll.reset_counts()
+    fwd = n4.forward_ntt_4step(cols, level.ntt, mesh)
+    inv = n4.inverse_ntt_4step(rows, level.ntt, mesh)
+    ntt_counts = coll.counts()
+    ntt_equal = torch.equal(n4.gather_rows_layout(fwd, mesh), x_ntt) and \
+        torch.equal(n4.gather_cols_layout(inv, mesh), x_coeff)
+    shape = f"({level.size}, 2^{ctx.n.bit_length() - 1})"
+    ms = {f"forward_ntt_4step {shape}": par_ms(
+              lambda: n4.forward_ntt_4step(cols, level.ntt, mesh)),
+          f"inverse_ntt_4step {shape}": par_ms(
+              lambda: n4.inverse_ntt_4step(rows, level.ntt, mesh))}
+    one_ms = par_one_process(rank, lambda: {
+        f"forward_ntt_4step {shape}": cuda_ms(lambda: forward_ntt(x_coeff, level.ntt), 20),
+        f"inverse_ntt_4step {shape}": cuda_ms(lambda: inverse_ntt(x_ntt.contiguous(),
+                                                                  level.ntt), 20)}) or {}
+    prod = ev.multiply(ctx, ct, ct)
+    p_s, c_s = ce.shard_ciphertext(prod, mesh), ce.shard_ciphertext(ct, mesh)
+    rlk_c, gk_c = ce.shard_key(rlk, mesh), ce.shard_galois_key(gk, mesh)
+
+    def run():
+        return (ce.relinearize_4step(ctx, p_s, rlk_c, mesh),
+                ce.rotate_4step(ctx, c_s, 1, gk_c, mesh))
+    (relin, rot), launches, counts, held = par_recorded("coeff u64", ck, run)
+    relin_w, rot_w = ce.gather(relin, mesh), ce.gather(rot, mesh)
+    want = par_one_process(rank, lambda: (ev.relinearize(ctx, prod, rlk),
+                                          ev.rotate(ctx, ct, 1, gk)))
+    equal = rank != 0 or (ntt_equal and par_same(relin_w, want[0])
+                          and par_same(rot_w, want[1]))
+    ms.update({"relinearize_4step": par_ms(lambda: ce.relinearize_4step(ctx, p_s, rlk_c, mesh)),
+               "rotate_4step": par_ms(lambda: ce.rotate_4step(ctx, c_s, 1, gk_c, mesh))})
+    one_ms.update(par_one_process(rank, lambda: {
+        "relinearize_4step": par_ms(lambda: ev.relinearize(ctx, prod, rlk)),
+        "rotate_4step": par_ms(lambda: ev.rotate(ctx, ct, 1, gk))}) or {})
+    return dict(equal=equal, launches=launches, counts=counts, held=held, ms=ms, one_ms=one_ms,
+                lines=[("1 x 4 coeff mesh", f"the 4-step NTT == K1 and K2 bit for bit: "
+                        f"{rank != 0 or ntt_equal} (collectives of one forward and one inverse: "
+                        f"{ntt_counts}); relinearize_4step and rotate_4step by 1 == one process "
+                        f"bit for bit: {equal}; the one-process ms beside the 4-step's are K1's "
+                        f"and K2's (CUDA events)")])
+
+
+def par_bsgs(rank: int, plan: str, ck: Checker) -> dict:
+    """The flagship bootstrap's first C2S BSGS level on `plan` (phase 10's
+    context: N = 2^16, u64 26 + 13 limbs or q32 52 + 26, budget (4, 4),
+    32768 slots), limb-sharded over 1 x 4 with the level's Galois keys
+    alone, drawn without Shoup words (K7 on u64, K9 on q32)."""
+    import torch
+
+    from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper
+    from tpu_fhe_torch.parallel import boot_sharded as bs, limb_eval as le, sharding as sh
+    from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
+    from tpu_fhe_torch.scheme.keys import SecretKey
+
+    t0 = time.time()
+    ctx = boot_context(plan, BOOT_N, UNIFORM_SINE, BOOT_BUDGET, levels_after=1)
+    enc = CkksEncoder(ctx)
+    boot = CkksBootstrapper(ctx, enc)
+    boot.set_sine_params(*UNIFORM_SINE)
+    slots = BOOT_N // 2
+    # the plaintexts of the one level run (those of the whole setup), not all
+    boot.setup(level_budget=BOOT_BUDGET, dim1=BOOT_DIM1, slots=slots, c2s_stage=0)
+    torch.cuda.synchronize()
+    setup_s = time.time() - t0
+    si, rot_in, rot_out, b, g, num_rot, _ = boot.c2s_stage_plans(slots)[0]
+    A = boot.precom[slots].a_c2s[si]
+    chain_index = next(pt.chain_index for pt in A if pt is not None)
+    drawn = None
+    if rank == 0:
+        sk = SecretKey(ctx, seed=PAR_SEED)
+        steps = [st for st in dict.fromkeys(list(rot_in) + list(rot_out)) if st != 0]
+        x = np.random.default_rng(PAR_SEED).uniform(-0.8, 0.8, slots)
+        drawn = (sk.galois_key(steps), sk.encrypt_symmetric(
+            enc.encode(x, 2.0 ** 59, chain_index=chain_index, slots=slots)))
+    boot.galois_keys = sh.broadcast_galois_key(drawn[0] if drawn else None, ctx.device)
+    ct = sh.broadcast_ciphertext(drawn[1] if drawn else None, ctx.device)
+    mesh = sh.make_mesh(1, PAR_WORLD)
+    sctx = le.LimbShardContext(ctx, mesh)
+    (got, stats), launches, counts, held = par_recorded(
+        f"bsgs {plan}", ck, lambda: bs.bsgs_level_limb_sharded(boot, ct, slots, mesh, sctx=sctx))
+    whole = sh.gather(ctx, got, mesh)
+    keys = boot._keys_for(rot_in, rot_out)
+
+    def one():
+        return boot._bsgs_level(ct, A, keys, rot_in, rot_out, b, g, num_rot)
+    want = par_one_process(rank, one)
+    equal = rank != 0 or par_same(whole, want)
+    ms = {"C2S BSGS level 0": par_ms(
+        lambda: bs.bsgs_level_limb_sharded(boot, ct, slots, mesh, sctx=sctx), reps=1)}
+    one_ms = par_one_process(rank, lambda: {"C2S BSGS level 0": par_ms(one, reps=1)}) or {}
+    return dict(equal=equal, launches=launches, counts=counts, held=held, ms=ms, one_ms=one_ms,
+                lines=[("C2S BSGS level 0, limb-sharded", f"N=2^{BOOT_N.bit_length() - 1}, "
+                        f"{ctx.params.size_Q} + "
+                        f"{ctx.params.size_P} limbs, {sctx.bq} + {sctx.bp} rows a rank, chain "
+                        f"index {ct.chain_index}, g={g} b={b}, {len(keys)} Galois keys; context and "
+                        f"the level's plaintexts {setup_s:.1f} s in each rank; gathered == one process bit for bit "
+                        f"with its metadata: {equal}; the level's own collectives {stats}")])
 
 
 if __name__ == "__main__":

@@ -11,6 +11,8 @@ plaintexts) on the card against the same slice on the CPU, and one N = 2^12
 bootstrap, one DNN conv and one batch norm, the packed convolution and the
 diagonal FC layer at N = 2^10, and BFV's and BGV's multiply paths at
 N = 2^12, through the kernels against the same through the plain versions;
+a limb-sharded relinearize at N = 2^12 in two gloo ranks on the card
+against the one-process relinearize;
 K9 over a chunk of the packed convolution's output channels at N = 2^16;
 the encoder's device embedding (ops/special_fft.py) on the card against the
 host's float64 embedding, and a device-embedding encode against the host
@@ -1419,3 +1421,19 @@ def test_evaluator_raises_when_capture_fails(ctx, monkeypatch):
     with pytest.raises(RuntimeError, match="capture failed"):
         E.negate(x["a"])
     assert E.num_graphs == 0
+
+
+def test_limb_sharded_relinearize_in_two_ranks_on_the_card(gpu, tmp_path):
+    """Two gloo ranks on the card (every CUDA tensor of a collective through
+    host memory): a limb-sharded relinearize at N = 2^12 through the kernels
+    equals the one-process relinearize in each rank."""
+    import sys
+    from pathlib import Path
+
+    from tpu_fhe_torch.parallel.sharding import run_ranks
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import torch_parallel_ranks as R
+
+    assert run_ranks(R.relinearize_rank, 2, ("cuda", 4096), init_file=str(tmp_path / "init"),
+                     backend="gloo", timeout_s=300) == [True, True]

@@ -9,9 +9,10 @@ convolution and diagonal FC layer of models/conv_packed.py, and BFV and
 BGV with the batch encoder, and the serializer of utils/serialize.py with
 a channel batch through the evaluator, and the CKKS examples
 torch_ckks_basics.py, torch_ckks_chebyshev.py and torch_bootstrap_ckks.py
-with the device embedding) run with both blocked; the module walk imports
-every module of the package, models/conv_packed.py and ops/special_fft.py
-too."""
+with the device embedding, and a limb-sharded relinearize of parallel/ in
+two gloo ranks, each rank blocking both itself) run with both blocked; the
+module walk imports every module of the package, models/conv_packed.py,
+ops/special_fft.py and parallel/ too."""
 
 import re
 import subprocess
@@ -398,3 +399,23 @@ def test_ckks_examples_run_with_jax_blocked(argv):
                           text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.rstrip().endswith("OK")
+
+
+def test_limb_sharded_relinearize_runs_with_jax_blocked(tmp_path):
+    """parallel/: a limb-sharded relinearize in two gloo ranks on the CPU,
+    equal to the one-process relinearize, in a process and ranks where
+    importing jax or tpu_fhe fails."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['tpu_fhe'] = None\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import torch_parallel_ranks as R\n"
+        "from tpu_fhe_torch.parallel.sharding import run_ranks\n"
+        f"init = {str(tmp_path / 'init')!r}\n"
+        "assert run_ranks(R.relinearize_rank_blocked, 2, init_file=init,\n"
+        "                 timeout_s=120) == [True, True]\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                          text=True, timeout=240)
+    assert proc.returncode == 0, proc.stderr

@@ -145,7 +145,12 @@ class CkksBootstrapper:
 
     # ------------------------------------------------------------------
     def setup(self, level_budget: tuple[int, int] = (2, 2), dim1: tuple[int, int] = (0, 0),
-              slots: int = 0, correction_factor: int = 0, precompute: bool = True):
+              slots: int = 0, correction_factor: int = 0, precompute: bool = True,
+              c2s_stage: int | None = None):
+        """The transforms' plans and plaintexts for `slots`.  With
+        c2s_stage given, only the plaintexts of that hoisted C2S level
+        (``c2s_stage_plans(slots)[c2s_stage]``) are made, the same as the
+        whole setup's, and none of S2C's: enough to run that one level."""
         ctx = self.ctx
         n = ctx.n
         M = 2 * n
@@ -196,10 +201,12 @@ class CkksBootstrapper:
         l_enc = L0 - budget[0] - 1
         l_dec = L0 - depth_bt
 
+        only = None if c2s_stage is None else self.c2s_stage_plans(slots)[c2s_stage][0]
         pre.a_c2s = self._coeffs_to_slots_precompute(pre, ksi, rot_group, False, scale_enc,
-                                                     l_enc, sparse)
-        pre.a_s2c = self._slots_to_coeffs_precompute(pre, ksi, rot_group, False, scale_dec,
-                                                     l_dec, sparse)
+                                                     l_enc, sparse, only)
+        if c2s_stage is None:
+            pre.a_s2c = self._slots_to_coeffs_precompute(pre, ksi, rot_group, False, scale_dec,
+                                                         l_dec, sparse)
 
     # ------------------------------------------------------------------
     def _anchor_product(self) -> float:
@@ -236,9 +243,10 @@ class CkksBootstrapper:
         return p, pick
 
     def _coeffs_to_slots_precompute(self, pre: BootPrecom, ksi, rot_group, flag_i, scale, L,
-                                    sparse=False):
+                                    sparse=False, only: int | None = None):
         """EvalCoeffsToSlotsPrecompute; on the sparse path rotations are
-        reduced mod N/2 and each plaintext holds 2 * slots values."""
+        reduced mod N/2 and each plaintext holds 2 * slots values.  With
+        `only`, the plaintexts of that level (its a_index) alone."""
         ctx = self.ctx
         sf, _ = auto.scaling_factors(ctx)
         p, pick = self._collapse(pre, True, ksi, rot_group, flag_i, sparse)
@@ -268,6 +276,8 @@ class CkksBootstrapper:
             [None] * (num_rot_rem if (flag_rem and i == 0) else num_rot)
             for i in range(level_budget)]
         for s in range(level_budget - 1, stop, -1):
+            if only is not None and s != only:
+                continue
             entries = []
             for i in range(b):
                 for j in range(g):
@@ -281,7 +291,7 @@ class CkksBootstrapper:
             for idx, pt in self._encode_ext_many(entries, sf[level0 - s],
                                                  chain_vector[s - stop]):
                 result[s][idx] = pt
-        if flag_rem:
+        if flag_rem and only in (None, stop):
             entries = []
             for i in range(b_rem):
                 for j in range(g_rem):

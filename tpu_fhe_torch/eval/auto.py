@@ -302,7 +302,7 @@ def raise_mod(ctx: FheContext, ct: Ciphertext) -> Ciphertext:
     qs = ctx.q_values[:d]
     anchor = ct.data if level.size == d else ct.data[..., :d, :].contiguous()
     coeff = inverse_ntt(anchor, ctx.ntt_view(level.ntt, tuple(range(d))))
-    cur = ev._garner_compose_u64(level, coeff, 0, d, qs)             # [0, Qa)
+    cur = ev._garner_compose_u64(level.mod, coeff, 0, d, qs)         # [0, Qa)
     qa = 1
     for v in qs:
         qa *= v

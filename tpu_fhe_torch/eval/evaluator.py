@@ -39,7 +39,8 @@ from ..ops import modarith as mm
 from ..ops.bconv import bconv_matmul, bconv_matmul32
 from ..ops.galois import apply_galois_ntt, conj_elt, galois_elt_from_step
 from ..ops.ks import key_inner_prod, key_inner_prod32, key_inner_prod_shoup
-from ..ops.ntt import forward_ntt, forward_ntt_sub_scale, inverse_ntt, inverse_ntt_scaled
+from ..ops.ntt import (DeviceNTTTables, forward_ntt, forward_ntt_sub_scale, inverse_ntt,
+                       inverse_ntt_scaled)
 from ..scheme.ciphertext import Ciphertext, Plaintext
 from ..scheme.context import ContextLevel, FheContext, ModulusVec, SchemeType
 from ..scheme.keys import GaloisKey, RelinKey
@@ -155,7 +156,12 @@ def modup(ctx: FheContext, level: ContextLevel, c2: torch.Tensor, *,
     digit to the complement of QlP, NTT the converted limbs, and splice the
     digit's own NTT limbs in unchanged.  With is_ntt=False (BFV's
     coefficient-form input) the digits are scaled without a transform and
-    each digit's own limbs are forward-transformed instead."""
+    each digit's own limbs are forward-transformed instead.  On a rank's
+    view of a limb-sharded context (a context with ``limb_shard``) the
+    call goes to its sharded form."""
+    shard = getattr(ctx, "limb_shard", None)
+    if shard is not None:
+        return shard.modup(level, c2, is_ntt=is_ntt)
     ks = level.ks
     if is_ntt:
         scaled = inverse_ntt_scaled(c2, level.ntt, ks.part_qhatinv, ks.part_qhatinv_shoup)
@@ -198,7 +204,12 @@ def moddown_from_ntt(ctx: FheContext, level: ContextLevel, cx: torch.Tensor, *,
     is inverse-transformed and the subtraction happens in the coefficient
     domain instead.  On a BGV context the subtraction preserves t: delta =
     t*U with U = [x * t^-1]_P, so delta = x (mod P) and 0 (mod t), and the
-    conversion's alpha*t*P overshoot divides to alpha*t = 0 (mod t)."""
+    conversion's alpha*t*P overshoot divides to alpha*t = 0 (mod t).  On a
+    rank's view of a limb-sharded context the call goes to its sharded
+    form, as modup's does."""
+    shard = getattr(ctx, "limb_shard", None)
+    if shard is not None:
+        return shard.moddown_from_ntt(level, cx, output_ntt=output_ntt)
     ks = level.ks
     size_Ql = level.size
     p_part = cx[..., size_Ql:, :].contiguous()
@@ -240,16 +251,32 @@ def relinearize(ctx: FheContext, a: Ciphertext, rlk: RelinKey) -> Ciphertext:
     return a.with_data(mm.add_mod(a.data[..., :2, :, :], delta, level.mod.q))
 
 
+def _drop_limbs(ctx: FheContext, level: ContextLevel, data: torch.Tensor, limbs: int,
+                drop_ntt: DeviceNTTTables | None = None):
+    """What a rescale by the last `limbs` limbs of `level` reads of them:
+    (their moduli, their coefficient form (..., limbs, N), the rows that
+    land).  On a rank's view of a limb-sharded context the view supplies
+    them, as it does modup's and moddown's."""
+    shard = getattr(ctx, "limb_shard", None)
+    if shard is not None:
+        return shard.drop_limbs(level, data, limbs)
+    keep = level.size - limbs
+    if drop_ntt is None:
+        drop_ntt = ctx.ntt_view(level.ntt, tuple(range(keep, level.size)))
+    return (level.mod.rows(slice(keep, level.size)),
+            inverse_ntt(data[..., keep:, :].contiguous(), drop_ntt),
+            data[..., :keep, :].contiguous())
+
+
 def rescale_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     """Divide by q_last with rounding; drops one limb and one chain level."""
     if a.chain_index + 1 >= len(ctx.chain):
         raise ValueError("already at the last level; cannot rescale")
     level = ctx.level(a.chain_index)
-    size_Ql = level.size
-    q_last = level.mod.q[-1:]                  # (1, 1)
+    size_Ql = len(level.base)                  # the whole Ql, on a shard's view too
+    last_mod, last_coeff, rows = _drop_limbs(ctx, level, a.data, 1)
+    q_last = last_mod.q                        # (1, 1)
     half = q_last >> 1
-    last_coeff = inverse_ntt(a.data[..., -1:, :].contiguous(),
-                             ctx.ntt_view(level.ntt, (size_Ql - 1,)))
     # add q_last/2 for rounding, then reduce into each remaining q_i
     last_half = mm.add_mod(last_coeff, half, q_last)
     next_level = ctx.level(a.chain_index + 1)
@@ -257,24 +284,24 @@ def rescale_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     reduced = _reduce(last_half, rest)           # (..., size, L-1, N)
     tmp = mm.sub_mod(reduced, _reduce(half, rest), rest.q)
     # (ct - NTT(tmp)) * q_last^{-1}, fused into the forward transform
-    out = forward_ntt_sub_scale(tmp, a.data[..., :-1, :].contiguous(), next_level.ntt,
-                                level.inv_q_last_mod_q, level.inv_q_last_mod_q_shoup)
+    out = forward_ntt_sub_scale(tmp, rows, next_level.ntt, level.inv_q_last_mod_q,
+                                level.inv_q_last_mod_q_shoup)
     return replace(a, data=out, chain_index=a.chain_index + 1,
                    scale=a.scale / ctx.q_values[size_Ql - 1])
 
 
-def _garner_compose_u64(level: ContextLevel, coeff: torch.Tensor, start: int, count: int,
+def _garner_compose_u64(mod: ModulusVec, coeff: torch.Tensor, start: int, count: int,
                         qs: list[int]) -> torch.Tensor:
-    """CRT-compose `count` consecutive limb residues (chain positions
-    start .. start+count-1 of `level`) into the exact value mod their
-    product, which the caller guarantees is below 2^62, as int64.  Garner:
-    extend one prime at a time with v_i = (x_i - cur) * inv(prod_prev) mod q_i."""
+    """CRT-compose `count` consecutive limb residues (the rows start ..
+    start+count-1 of `mod`) into the exact value mod their product, which
+    the caller guarantees is below 2^62, as int64.  Garner: extend one
+    prime at a time with v_i = (x_i - cur) * inv(prod_prev) mod q_i."""
     cur = coeff[..., 0:1, :].to(torch.int64)
     prod_prev = qs[0]
     for i in range(1, count):
-        mod = level.mod.rows(slice(start + i, start + i + 1))
-        diff = mm.sub_mod(coeff[..., i:i + 1, :], _reduce(cur, mod), mod.q)
-        v = mod.mul(diff, torch.full_like(mod.q, invert_mod(prod_prev % qs[i], qs[i])))
+        row = mod.rows(slice(start + i, start + i + 1))
+        diff = mm.sub_mod(coeff[..., i:i + 1, :], _reduce(cur, row), row.q)
+        v = row.mul(diff, torch.full_like(row.q, invert_mod(prod_prev % qs[i], qs[i])))
         cur = v.to(torch.int64) * prod_prev + cur
         prod_prev *= qs[i]
     return cur
@@ -293,7 +320,7 @@ def rescale_composite(ctx: FheContext, a: Ciphertext, limbs: int = 2) -> Ciphert
     if a.chain_index + limbs >= len(ctx.chain):
         raise ValueError("not enough levels left to rescale")
     level = ctx.level(a.chain_index)
-    size_Ql = level.size
+    size_Ql = len(level.base)                  # the whole Ql, on a shard's view too
     if size_Ql - limbs < 1:
         raise ValueError("no modulus left to rescale")
     keep = size_Ql - limbs
@@ -308,15 +335,14 @@ def rescale_composite(ctx: FheContext, a: Ciphertext, limbs: int = 2) -> Ciphert
 
     drop_ntt, inv_q2, inv_q2_shoup, half_mod = ctx.composite_rescale_tables(a.chain_index,
                                                                             limbs)
-    coeff = inverse_ntt(a.data[..., keep:, :].contiguous(), drop_ntt)
-    v = _garner_compose_u64(level, coeff, keep, limbs, qd)            # [0, Q2)
+    drop_mod, coeff, rows = _drop_limbs(ctx, level, a.data, limbs, drop_ntt)
+    v = _garner_compose_u64(drop_mod, coeff, 0, limbs, qd)            # [0, Q2)
     # w = (v + Q2/2) mod Q2, then per remaining limb tmp_i = (w - Q2/2) mod
     # q_i, so that x - tmp == round(x / Q2) * Q2 (mod q_i)
     w = mm.csub(v + (q2 >> 1), q2)
     next_level = ctx.level(a.chain_index + limbs)
     tmp = mm.sub_mod(_reduce(w, next_level.mod), half_mod, next_level.mod.q)
-    out = forward_ntt_sub_scale(tmp, a.data[..., :keep, :].contiguous(), next_level.ntt,
-                                inv_q2, inv_q2_shoup)
+    out = forward_ntt_sub_scale(tmp, rows, next_level.ntt, inv_q2, inv_q2_shoup)
     scale = a.scale
     for v_ in qd:
         scale /= float(v_)
@@ -327,6 +353,9 @@ def mod_drop_to_next(ctx: FheContext, a: Ciphertext) -> Ciphertext:
     """Drop the last limb without scaling (mod switch)."""
     if a.chain_index + 1 >= len(ctx.chain):
         raise ValueError("already at the last level; cannot drop further")
+    shard = getattr(ctx, "limb_shard", None)
+    if shard is not None:
+        return shard.mod_drop_to_next(a)
     return replace(a, data=a.data[..., :-1, :].contiguous(), chain_index=a.chain_index + 1)
 
 
