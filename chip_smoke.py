@@ -121,9 +121,8 @@ plaintexts freed before the second's are made):
 11. at N = 2^12 (level budget (2, 2), the default sine set, three levels
     after), a two-iteration dense Meta-BTS (whose first iteration is the
     dense bootstrap) with every distinct kernel call held against its plain
-    version as it comes, and the sparse bootstrap (64 slots) through the
-    kernels bit-identical to the same through the plain versions, each
-    decoding to more than 10 bits; then two channels stacked into one
+    version as it comes, and the sparse bootstrap (64 slots) held the same
+    way, each decoding to more than 10 bits; then two channels stacked into one
     (2, 2, L, N) ciphertext and bootstrapped at once, every distinct kernel
     call held against its plain version as it comes, bit-identical to each
     channel's own bootstrap, metadata included, with the launches of one
@@ -167,7 +166,15 @@ Then, the bootstrap contexts freed, the PPML layer library and ResNet-20
     plain version as it comes, on the inference's own arguments and the
     context's tables, its output equal to the first's and its recorded
     calls equal to the launches, and each kernel's widest shape timed and
-    bounded.
+    bounded; then the pool and FC at full width, the one stage kind the
+    truncated inference does not reach: the shadow's l3b2 output (64
+    channels at width 8, slot stride 2) encrypted and mod-dropped to the
+    chain index, scale and degree of the inference's l1b0 output
+    (resnet20.enc_stage_output), its 6 pool Galois keys, and
+    avg_pool_full_con with the FC's bias, every distinct wrapper call held
+    against its plain version as it comes, the launches (counters set to
+    0 first) and its ms, peak memory and logits (decrypted at the fewest
+    limbs that hold them) within 1e-2 of the shadow's.
 
 Every bootstrap profile (phases 10 and 13) compares its count of each port
 kernel with the launches the wrappers counted in the same run; a window
@@ -2214,10 +2221,9 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
     a two-iteration dense Meta-BTS (its first iteration is the dense
     bootstrap, which no longer runs alone: phase 14 took its time) with
     every distinct wrapper call held against its plain version as it comes
-    (recorded_calls), and the sparse bootstrap (64 slots) through the
-    kernels bit-identical to the same through the plain versions, each
-    decoding to at least BOOT11_MIN_BITS, and the Meta-BTS not returning
-    its input.  The example takes the sparse set
+    (recorded_calls), and the sparse bootstrap (64 slots) held the same
+    way, each decoding to at least BOOT11_MIN_BITS, and the Meta-BTS not
+    returning its input.  The example takes the sparse set
     K = 28, r = 3, degree 44 up to 2^13, but with a uniform ternary secret
     the integer part of the raised plaintext passes K from 2^11 on and the
     sine's Chebyshev series is evaluated outside [-1, 1]: the output does not
@@ -2240,18 +2246,15 @@ def bootstrap_plain_phase(tag: str, ck: Checker) -> None:
             precision = META_PRECISION if iterations > 1 else 0
             what = (f"N=2^12 bootstrap, {slots} slots" +
                     (f", Meta-BTS {iterations} iterations" if iterations > 1 else ""))
-            if iterations > 1:
-                # held call by call: a whole second pass through the plain
-                # versions took about 50 s of the u64 plan's phase
-                calls = {}
-                ck.reset()
-                with recorded_calls(calls, ck):
-                    out = boot.eval_bootstrap(ct, slots, iterations, precision)
-                torch.cuda.synchronize()
-                path_checks(tag, what, ck, calls, ck.launches())
-            else:
-                out, = same_as_plain(tag, what, ck, lambda: [
-                    boot.eval_bootstrap(ct, slots, iterations, precision)])
+            # held call by call: a whole second pass through the plain
+            # versions took about 50 s of the u64 plan's phase for the
+            # Meta-BTS
+            calls = {}
+            ck.reset()
+            with recorded_calls(calls, ck):
+                out = boot.eval_bootstrap(ct, slots, iterations, precision)
+            torch.cuda.synchronize()
+            path_checks(tag, what, ck, calls, ck.launches())
             if out is ct:
                 fail(f"{tag} {what}: returned its input")
             bits = precision_bits(enc.decode(sk.decrypt(out), slots=slots).real, x)
@@ -2273,8 +2276,7 @@ def batched_bootstrap(tag: str, ck: Checker, boot, enc, sk, slots: int, first: t
     metadata included, to the two channels' own bootstraps, each channel
     decoding to more than BOOT11_MIN_BITS; the batch's launches beside one
     channel's.  (A whole second pass through the plain versions took about
-    40 s of the u64 plan's phase; the first channel's own bootstrap is held
-    against one.)"""
+    40 s of the u64 plan's phase.)"""
     import torch
 
     from tpu_fhe_torch.boot.bootstrap import precision_bits
@@ -2711,6 +2713,88 @@ def resnet_phase(ck: Checker, card: str) -> dict:
         f"version as it came, == the first, bit for bit ({time.time() - t0:.1f} s)")
     del again
     path_checks("q32", "ResNet-20 inference", ck, calls, launches)
+    pool = pool_fc_check(ck, ctx, enc, sk, weights, image, out.cts[0], card)
+    return {name: count + pool[name] for name, count in launches.items()}
+
+
+def pool_fc_check(ck: Checker, ctx, enc, sk, weights: dict, image, like, card: str) -> dict:
+    """Phase 13, continued: ResNet-20's pool and FC at full width from the
+    float64 sign-composite shadow's l3b2 output (64 channels at width 8,
+    slot stride 2), encrypted and mod-dropped to the chain index, scale and
+    noise-scale degree of the inference's own l1b0 output `like`
+    (resnet20.enc_stage_output), with the pool's 6 Galois keys: one
+    avg_pool_full_con with the FC's bias (counters set to 0 just before)
+    with every distinct wrapper call held against its plain version as it
+    comes, and the logits, mod-dropped to the fewest limbs that hold them
+    and decrypted, within RESNET_MAX_ERR of the shadow's.  Returns its
+    launch counts."""
+    import torch
+
+    from tpu_fhe_torch.eval import evaluator as ev
+    from tpu_fhe_torch.models import resnet20 as rn
+    from tpu_fhe_torch.models.dnn import DNN, TensorCT, relu_composite_clear
+
+    t0 = time.time()
+    shadow = {}
+    rn.resnet20_infer_clear(image, weights, relu=relu_composite_clear,
+                            on_stage_done=shadow.__setitem__)
+    acts = shadow["l3b2"]
+    width = acts.shape[0]
+    slotstr = rn.stage_slotstr("pool")
+    model = DNN(ctx, enc)
+    model.build_galois_key(sk, DNN.avgpool_rotation_indices(width, slotstr))
+    x = rn.enc_stage_output(model, acts, sk, "l3b2", like)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t1 = time.time()
+    calls: dict = {}
+    ck.reset()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with recorded_calls(calls, ck):
+        start.record()
+        out = model.avg_pool_full_con(x, weights["fc_weight"], weights["fc_bias"])
+        end.record()
+    torch.cuda.synchronize()
+    launches = ck.launches()
+    peak = torch.cuda.max_memory_allocated()
+    # each logit mod-dropped to the fewest limbs whose modulus exceeds its
+    # scale by 2^24 (the value, its sign and the noise) before decryption:
+    # the host's exact CRT composition in decode costs about L^2
+    kept = []
+    for ct in out.cts:
+        while ct.chain_index + 1 < len(ctx.chain) and sum(
+                math.log2(q) for q in ctx.level(ct.chain_index + 1).base.values) \
+                > math.log2(ct.scale) + 24:
+            ct = ev.mod_drop_to_next(ctx, ct)
+        kept.append(ct)
+    t2 = time.time()
+    logits = model.dec_tensor(TensorCT(kept, out.width, out.slotstr), sk)[0, 0, :]
+    t2 = time.time() - t2
+    want = shadow["pool"]
+    if logits.shape != want.shape or not np.all(np.isfinite(logits)):
+        fail(f"q32 resnet pool: decoded {logits.shape} (want {want.shape}) or non-finite")
+    err = float(np.max(np.abs(logits - want)))
+    log(f"[q32 resnet] pool + FC at full width: {x.num_ch} channels at width {width}, slot "
+        f"stride {slotstr}, from the shadow's l3b2 output at chain index {like.chain_index} "
+        f"({ctx.level(like.chain_index).size} limbs, degree {like.noise_scale_deg}), "
+        f"{len(model.gk.keys)} pool Galois keys {sorted(DNN.avgpool_rotation_indices(width, slotstr))}"
+        f": avg_pool_full_con {start.elapsed_time(end):.1f} ms (CUDA events, wrapper calls "
+        f"held as they came), {len(out.cts)} logits (decrypted at "
+        f"{ctx.level(kept[0].chain_index).size} of {ctx.level(out.cts[0].chain_index).size} "
+        f"limbs in {t2:.1f} s), max err {err:.3e} against the shadow "
+        f"(limit {RESNET_MAX_ERR}), argmax {int(np.argmax(logits))} (shadow "
+        f"{int(np.argmax(want))}); device memory {base / 2**30:.2f} GiB before, peak "
+        f"{peak / 2**30:.2f} GiB on {card}")
+    log("[q32 resnet] launches in the pool + FC: " + ", ".join(
+        f"{k} {v}" for k, v in launches.items()))
+    if not err <= RESNET_MAX_ERR:
+        fail(f"q32 resnet pool: max error {err} > {RESNET_MAX_ERR}")
+    # the pool's Galois keys carry no Shoup words (K9, not K10)
+    ck.require_launched("q32 resnet pool + FC", launches, ("bconv", "key_inner_prod_shoup32"))
+    path_checks("q32", "ResNet-20 pool + FC", ck, calls, launches)
+    log(f"[q32 resnet] pool + FC check in {time.time() - t0:.1f} s ({t1 - t0:.1f} s of shadow, "
+        "keys and encryption)")
     return launches
 
 

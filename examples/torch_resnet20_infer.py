@@ -11,12 +11,22 @@ device unless --cpu is given.
 Full scale (GPU):      python examples/torch_resnet20_infer.py --q32
 Doll-scale demo (CPU): python examples/torch_resnet20_infer.py --cpu --demo
 Resumable:             ... --ckpt DIR [--budget SECONDS]
+Per-stage record:      ... --record PATH
 
 Channels run in chunks of the DNN's channel batch (its memory rule by
 default; --channel-batch 1 runs them one at a time).  With --ckpt the
 tensor is saved after every stage and a rerun resumes after the last saved
 stage; --budget checkpoints and exits with code 3 once the inference has
 taken that many seconds (run again to continue).
+
+--record appends one JSON line per stage to PATH and prints it: the
+stage's seconds (synchronized host clock), the timer buckets' seconds and
+sections within it, the chunk, the channel bootstraps, the kernel launches,
+the peak device memory within the stage, the output's chain index and
+limbs, and max_err, the largest |decrypted output - the float64
+sign-composite shadow's output of the same stage| (the pool's: the logits,
+beside the exact-ReLU shadow's, and the three argmaxes); then a closing
+line with the totals and the setup's seconds.
 
 The demo shrinks ring, width and planes but runs the identical pipeline
 (conv, bn, ReluComposite with bootstraps, residual, downsample, pool and
@@ -32,10 +42,30 @@ import sys as _sys
 _sys.path.insert(0, _os.path.dirname(_os.path.dirname(_os.path.abspath(__file__))))
 
 import argparse
+import json
+import subprocess
 import sys
 import time
 
 import numpy as np
+
+
+def card_name(device) -> str:
+    """`nvidia-smi`'s name and power limit of the card (the device's name
+    alone where nvidia-smi does not answer), or "cpu"."""
+    import torch
+
+    if device.type != "cuda":
+        return "cpu"
+    try:
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                              "--format=csv,noheader", "-i", str(device.index or 0)],
+                             capture_output=True, text=True, timeout=60)
+        if smi.returncode == 0 and smi.stdout.strip():
+            return smi.stdout.strip().splitlines()[0]
+    except OSError:
+        pass
+    return f"{torch.cuda.get_device_name(device)}, power limit not read"
 
 
 def main():
@@ -63,10 +93,14 @@ def main():
     ap.add_argument("--budget", type=float, default=0.0,
                     help="wall-clock seconds: checkpoint and exit(3) when exceeded (run again "
                          "to continue)")
+    ap.add_argument("--record", type=str, default="",
+                    help="append one JSON line per stage and a closing line to this file")
     args = ap.parse_args()
     if args.budget and not args.ckpt:
         ap.error("--budget requires --ckpt (otherwise completed work would be lost at the "
                  "budget exit)")
+
+    import torch
 
     from tpu_fhe_torch.boot.bootstrap import CkksBootstrapper, gen_sine_coefficients
     from tpu_fhe_torch.core.modulus import CoeffModulus
@@ -74,6 +108,8 @@ def main():
     from tpu_fhe_torch.eval import auto, chebyshev as cheb
     from tpu_fhe_torch.models import resnet20 as rn
     from tpu_fhe_torch.models.dnn import DNN, relu_composite_clear
+    from tpu_fhe_torch.ops import bconv, ks, ntt
+    from tpu_fhe_torch.ops._build import CudaKernel
     from tpu_fhe_torch.scheme.ckks_encoder import CkksEncoder
     from tpu_fhe_torch.scheme.context import FheContext
     from tpu_fhe_torch.scheme.keys import SecretKey
@@ -98,6 +134,7 @@ def main():
     level_budget = (tuple(int(v) for v in args.level_budget.split(","))
                     if args.level_budget else (2, 2))
     first_mod, dcrt_bits, aux_mod, size_p = 60, 59, 60, 15 if not args.demo else 3
+    names = rn.stage_names(blocks, args.layers)
 
     approx = cheb.get_mult_depth_by_coeff_vector(gen_sine_coefficients(*sine), normalized=False)
     boot_depth = approx + sine[1] + level_budget[0] + level_budget[1]
@@ -119,22 +156,44 @@ def main():
                                       coeff_modulus=tuple(CoeffModulus.create(n, bits)),
                                       special_modulus_size=size_p)
     ctx = FheContext(params, device=device)
+    dev = ctx.device
+    cuda = dev.type == "cuda"
+
+    def sync():
+        if cuda:
+            torch.cuda.synchronize(dev)
+
+    def peak_gib():
+        return torch.cuda.max_memory_allocated(dev) / 2**30 if cuda else None
+
     enc = CkksEncoder(ctx)
     sk = SecretKey(ctx, seed=1)
-    print(f"[context] logQP={sum(m.bit_count for m in params.coeff_modulus)} on {ctx.device} "
-          f"({time.time() - t0:.1f}s)")
+    sync()
+    setup = {"context": time.time() - t0}
+    print(f"[context] logQP={sum(m.bit_count for m in params.coeff_modulus)} on {dev} "
+          f"({setup['context']:.1f}s)")
 
     sf, _ = auto.scaling_factors(ctx)
     model = DNN(ctx, enc, scale=sf[0], channel_batch=args.channel_batch or None)
+    ts = time.time()
     rn.prepare_resnet20(model, sk, width=width, layers=args.layers)
+    sync()
+    setup["dnn_keys"] = time.time() - ts
 
     slots = width * width
+    ts = time.time()
     boot = CkksBootstrapper(ctx, enc)
     boot.set_sine_params(*sine)
     boot.setup(level_budget=level_budget, slots=slots,
                dim1=(8, 8) if (not args.demo and level_budget[0] >= 4) else (0, 0))
+    sync()
+    setup["bootstrap_setup"] = time.time() - ts
+    ts = time.time()
     boot.keygen(sk, slots=slots)
     model.mul_key = boot.mul_key
+    sync()
+    setup["bootstrap_keygen"] = time.time() - ts
+    setup["peak_gib"] = peak_gib()
     print(f"[keys+bootstrap setup] ({time.time() - t0:.1f}s)")
 
     rng = np.random.default_rng(17)
@@ -142,6 +201,12 @@ def main():
         rn.random_weights(rng, planes=planes)
     image = rn.load_cifar_image(args.image, args.image_index) if args.image else \
         rng.uniform(-0.5, 0.5, (width, width, 3))
+    # the float64 shadows, each stage's output kept
+    shadow, exact = {}, {}
+    rn.resnet20_infer_clear(image, weights, relu=relu_composite_clear, blocks=blocks,
+                            layers=args.layers, on_stage_done=shadow.__setitem__)
+    rn.resnet20_infer_clear(image, weights, blocks=blocks, layers=args.layers,
+                            on_stage_done=exact.__setitem__)
 
     print(f"[inference] start, {model.channel_batch(planes[0])} channels per chunk")
     t1 = time.time()
@@ -154,10 +219,67 @@ def main():
     else:
         x = model.enc_tensor(image, sk=sk)
 
+    card = card_name(dev)
+    kernels = list({k.name: k for mod in (ntt, bconv, ks) for k in vars(mod).values()
+                    if isinstance(k, CudaKernel)}.values())
+    record = open(args.record, "a") if args.record else None
+    launches = dict.fromkeys((k.name for k in kernels), 0)
+    lines = []
+
+    def emit(line: dict):
+        text = json.dumps(line)
+        print(text, flush=True)
+        if record is not None:
+            record.write(text + "\n")
+            record.flush()
+
+    state: dict = {}
+
+    def stage_start():
+        sync()
+        for k in kernels:
+            k.launches = 0
+        if cuda:
+            torch.cuda.reset_peak_memory_stats(dev)
+        state.update(t=time.time(), acc=timer.accumulated(), counts=timer.counts())
+
     class _Budget(Exception):
         pass
 
     def stage_done(name, t):
+        sync()
+        secs = time.time() - state["t"]
+        counts = timer.counts()
+        buckets = {k: [v - state["acc"].get(k, 0.0), counts[k] - state["counts"].get(k, 0)]
+                   for k, v in timer.accumulated().items()
+                   if counts[k] != state["counts"].get(k, 0)}
+        stage_launches = {k.name: k.launches for k in kernels}
+        if args.record:
+            chunk = model.channel_batch(shadow[name].shape[-1] if name != "pool"
+                                        else planes[2])
+            acts = model.dec_tensor(t, sk)
+            line = dict(stage=name, seconds=secs, timers=buckets, chunk=chunk,
+                        channel_bootstraps=buckets.get("Bootstrap", [0, 0])[1] * chunk,
+                        launches=stage_launches, peak_gib=peak_gib(), card=card,
+                        chain_index=t.cts[0].chain_index,
+                        limbs=ctx.level(t.cts[0].chain_index).size,
+                        channels=t.num_ch, width=t.width, slotstr=t.slotstr)
+            if name == "pool":
+                logits = acts[0, 0, :]
+                line.update(max_err=float(np.max(np.abs(logits - shadow[name]))),
+                            max_err_exact=float(np.max(np.abs(logits - exact[name]))),
+                            logits=logits.tolist(), shadow_logits=shadow[name].tolist(),
+                            exact_logits=exact[name].tolist(),
+                            argmax=int(np.argmax(logits)),
+                            argmax_shadow=int(np.argmax(shadow[name])),
+                            argmax_exact=int(np.argmax(exact[name])))
+            else:
+                line.update(max_err=float(np.max(np.abs(acts - shadow[name]))),
+                            finite=bool(np.all(np.isfinite(acts))))
+            lines.append(line)
+            emit(line)
+        for k, v in stage_launches.items():
+            launches[k] += v
         if args.ckpt:
             ts = time.time()
             rn.save_tensor_ct(t, args.ckpt, stage=name)
@@ -165,25 +287,42 @@ def main():
         if args.budget and time.time() - t1 > args.budget and name != "pool":
             # pool is the last stage: let the logits print
             raise _Budget(name)
+        stage_start()
 
+    def closing(last: str):
+        if not lines:
+            return
+        emit(dict(stage="total", stages=[ln["stage"] for ln in lines], last=last,
+                  seconds=sum(ln["seconds"] for ln in lines),
+                  wall_seconds=time.time() - t1,
+                  channel_bootstraps=sum(ln["channel_bootstraps"] for ln in lines),
+                  bootstrap_sections=sum(ln["timers"].get("Bootstrap", [0, 0])[1]
+                                         for ln in lines),
+                  launches=launches,
+                  peak_gib=max(ln["peak_gib"] for ln in lines) if cuda else None,
+                  max_err=max(ln["max_err"] for ln in lines), card=card,
+                  setup_seconds=setup, n=n, width=width, planes=list(planes), blocks=blocks,
+                  layers=args.layers, q32=args.q32, start_after=start_after or None))
+
+    stage_start()
     try:
         out = rn.resnet20_infer(x, model, boot, weights, blocks=blocks, layers=args.layers,
                                 log=lambda m: print(f"  {m} ({time.time() - t1:.0f}s)"),
                                 start_after=start_after, on_stage_done=stage_done)
     except _Budget as e:
+        closing(str(e))
         print(f"[budget] exceeded after stage {e} ({time.time() - t1:.0f}s); checkpointed, "
               "run again to continue")
         timer.print_accumulated()
         sys.exit(3)
+    closing(names[-1])
     wall = time.time() - t1
     if args.layers < 3:
         acts = model.dec_tensor(out, sk)
         print(f"[inference] truncated ({args.layers} layers) done in {wall:.1f}s; "
               f"activation sample {np.round(acts[0, 0, :4], 4)}")
         timer.print_accumulated()
-        shadow = rn.resnet20_infer_clear(image, weights, relu=relu_composite_clear,
-                                         blocks=blocks, layers=args.layers)
-        print(f"max |encrypted - shadow| {float(np.max(np.abs(acts - shadow))):.3e} "
+        print(f"max |encrypted - shadow| {float(np.max(np.abs(acts - shadow[names[-1]]))):.3e} "
               "(the shadow applies the same sign composite)")
         return
     logits = model.dec_tensor(out, sk)[0, 0, :]
@@ -194,12 +333,10 @@ def main():
     if not args.weights or blocks < 3:
         # the exact-ReLU shadow beside the sign-composite one the encrypted
         # pipeline computes
-        clear = rn.resnet20_infer_clear(image, weights, blocks=blocks)
-        shadow = rn.resnet20_infer_clear(image, weights, relu=relu_composite_clear,
-                                         blocks=blocks)
-        print(f"cleartext logits: {np.round(clear, 4)}")
-        print(f"clear class:      {int(np.argmax(clear))}")
-        print(f"max |encrypted - composite shadow| {float(np.max(np.abs(logits - shadow))):.3e}")
+        print(f"cleartext logits: {np.round(exact['pool'], 4)}")
+        print(f"clear class:      {int(np.argmax(exact['pool']))}")
+        print(f"max |encrypted - composite shadow| "
+              f"{float(np.max(np.abs(logits - shadow['pool']))):.3e}")
 
 
 if __name__ == "__main__":

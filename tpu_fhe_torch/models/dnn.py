@@ -208,11 +208,16 @@ class DNN:
 
     @staticmethod
     def avgpool_rotation_indices(input_width: int, slotstr: int) -> list[int]:
-        """The rotation steps of the log-rotation image sum."""
+        """The rotation steps of the log-rotation image sum: columns 2^i
+        apart (2^i << slotstr slots) and rows 2^j apart ((2^j << slotstr)
+        times the row length in slots, input_width << slotstr).  The
+        reference steps rows by (2^j << slotstr) * input_width, which is
+        one data row only at slot stride 0."""
         log_l = int(math.log2(input_width))
         pow_s = 1 << slotstr
+        large_l = input_width * pow_s
         return ([pow_s << i for i in range(log_l)]
-                + [(pow_s << j) * input_width for j in range(log_l)])
+                + [(pow_s << j) * large_l for j in range(log_l)])
 
     def build_galois_key(self, sk: SecretKey, rotation_indices: list[int]):
         self.gk = sk.galois_key(sorted({r for r in rotation_indices if r != 0}))
@@ -223,21 +228,29 @@ class DNN:
     # -- encode / encrypt -----------------------------------------------------
     def enc_tensor(self, image: np.ndarray, pk: PublicKey | None = None,
                    sk: SecretKey | None = None,
-                   generator: torch.Generator | None = None) -> TensorCT:
+                   generator: torch.Generator | None = None, slotstr: int = 0,
+                   scale: float | None = None) -> TensorCT:
         """image (w, w, ch) -> one sparse-packed ciphertext per channel at
-        chain index 1: under `pk` (drawing from `generator`, by default one
-        seeded with 0 on the context's device), else under `sk`."""
+        chain index 1 and `scale` (default the DNN's): under `pk` (drawing
+        from `generator`, by default one seeded with 0 on the context's
+        device), else under `sk`.  At slot stride `slotstr` the (i, j)
+        pixel lies in slot (i (w << slotstr) + j) << slotstr of (w <<
+        slotstr)^2, the layout a stride-2 convolution leaves, and the slots
+        between hold 0."""
         image = np.asarray(image, dtype=np.float64)
         w, _, ch = image.shape
+        big_w, pow_s = w << slotstr, 1 << slotstr
         if pk is not None and generator is None:
             generator = torch.Generator(device=self.ctx.device).manual_seed(0)
         cts = []
         for k in range(ch):
-            pt = self.encoder.encode(image[:, :, k].reshape(-1), self.scale, chain_index=1,
-                                     slots=w * w)
+            vals = np.zeros((big_w, big_w))
+            vals[::pow_s, ::pow_s] = image[:, :, k]
+            pt = self.encoder.encode(vals.reshape(-1), scale or self.scale, chain_index=1,
+                                     slots=big_w * big_w)
             cts.append(encrypt_asymmetric(self.ctx, pk, pt, generator) if pk is not None
                        else sk.encrypt_symmetric(pt))
-        return TensorCT(cts=cts, width=w, slotstr=0)
+        return TensorCT(cts=cts, width=w, slotstr=slotstr)
 
     def dec_tensor(self, t: TensorCT, sk: SecretKey) -> np.ndarray:
         """-> (w, w, ch) real array."""
@@ -580,17 +593,16 @@ class DNN:
     def avg_pool_full_con(self, t: TensorCT, weight: np.ndarray,
                           bias: np.ndarray) -> TensorCT:
         """The log-rotation sum of each channel's image (it lands in slot 0,
-        not averaged, as in the reference), then the fully connected layer,
-        weight (T, channels), as a modular matvec over the stacked channels
-        with the weights' and biases' CRT lifts copied once."""
+        not averaged, as in the reference; the steps of
+        avgpool_rotation_indices), then the fully connected layer, weight
+        (T, channels), as a modular matvec over the stacked channels with
+        the weights' and biases' CRT lifts copied once, one class at a
+        time."""
         ctx = self.ctx
         T, tc = weight.shape
         if tc != t.num_ch:
             raise ValueError("fully connected weight does not match the channels")
-        pow_s = 1 << t.slotstr
-        log_l = int(math.log2(t.width))
-        steps = [pow_s << i for i in range(log_l)] + \
-                [(pow_s << j) * t.width for j in range(log_l)]
+        steps = self.avgpool_rotation_indices(t.width, t.slotstr)
         keys = {}
         for s_ in steps:
             elt = galois_elt_from_step(s_, ctx.n)
@@ -626,10 +638,20 @@ class DNN:
         wc = _residues(ctx, wc)[:, :, None, :, None]                      # (T, tc, 1, L, 1)
         bc = _residues(ctx, bc)[..., None]                                # (T, L, 1)
         q = level.mod.q
-        prod = level.mod.mul(summed.data[None], wc)                      # (T, tc, 2, L, N)
-        acc = prod[:, 0]
-        for k in range(1, tc):
-            acc = mm.add_mod(acc, prod[:, k], q)
+        # one class at a time: on a q32 context mul_mod_q32 holds up to seven
+        # int64 arrays of the product's shape at once (the product, its low
+        # and high words, s0 and three temporaries of s1), so all classes at
+        # once would take 7 * T * tc * 2 * L * N * 8 bytes: 114 GiB at
+        # ResNet-20's 10 x 64 x 2 x 26 x 2^16, more than an 80-GB card holds
+        rows = []
+        for u in range(T):
+            prod = level.mod.mul(summed.data, wc[u])
+            row = prod[0]
+            for k in range(1, tc):
+                row = mm.add_mod(row, prod[k], q)
+            rows.append(row)
+        del prod
+        acc = torch.stack(rows)                                          # (T, 2, L, N)
         c0 = mm.add_mod(acc[:, 0], bc, q)
         out = replace(summed, data=torch.cat([c0[:, None], acc[:, 1:]], dim=1),
                       noise_scale_deg=summed.noise_scale_deg + 1, scale=summed.scale * scf)

@@ -11,7 +11,9 @@ an exact ReLU.  ``save_tensor_ct`` / ``load_tensor_ct`` checkpoint a
 tensor between stages (one file per channel in the serializer's format,
 which the reference reads too, and a ``meta.json`` with the geometry, the
 stage and the timer buckets), so that a long run resumes in a later
-process (``start_after``).
+process (``start_after``).  ``enc_stage_output`` encrypts the shadow's
+output of a stage in the layout and at the level the encrypted pipeline
+holds it there.
 """
 
 from __future__ import annotations
@@ -19,10 +21,12 @@ from __future__ import annotations
 import json
 import math
 import os
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 
 import numpy as np
 
+from ..eval import auto, evaluator as ev
+from ..scheme.ciphertext import Ciphertext
 from ..scheme.context import FheContext
 from ..utils import serialize as ser, timer
 from .dnn import DNN, TensorCT
@@ -172,6 +176,39 @@ def stage_names(blocks: int = 3, layers: int = 3) -> list[str]:
     return names + (["pool"] if layers >= 3 else [])
 
 
+def stage_slotstr(name: str) -> int:
+    """The slot stride of a stage's output: 0 through layer 1, 1 in layer
+    2, 2 in layer 3 and the pool (each stride-2 block doubles it)."""
+    if name.startswith("l2"):
+        return 1
+    return 2 if name.startswith(("l3", "pool")) else 0
+
+
+def enc_stage_output(model: DNN, acts: np.ndarray, sk, stage: str,
+                     like: Ciphertext) -> TensorCT:
+    """The float64 activations `acts` (w, w, ch) of `stage`'s output in the
+    form the encrypted pipeline holds them there: at the stage's slot
+    stride (DNN.enc_tensor under `sk`, 0 between the pixels), then
+    mod-dropped to the chain index of `like` (a stage output's: every
+    stage ends in the same bootstrap) with its scale and noise-scale
+    degree; a degree of 2 is reached by mult_const(1.0) at that level from
+    the scale like.scale / sf[level]."""
+    ctx = model.ctx
+    deg2 = like.noise_scale_deg == 2
+    scale = like.scale / auto.scaling_factors(ctx)[0][auto._level(like, ctx)] if deg2 \
+        else like.scale
+    slotstr = stage_slotstr(stage)
+    cts = []
+    for k in range(acts.shape[-1]):     # one channel at a time at chain index 1
+        ct = model.enc_tensor(acts[..., k:k + 1], sk=sk, slotstr=slotstr, scale=scale).cts[0]
+        while ct.chain_index < like.chain_index:
+            ct = ev.mod_drop_to_next(ctx, ct)
+        if deg2:
+            ct = replace(auto.mult_const(ctx, ct, 1.0), scale=like.scale)
+        cts.append(ct)
+    return TensorCT(cts, acts.shape[0], slotstr)
+
+
 def resnet20_infer(x: TensorCT, model: DNN, bootstrapper, weights: dict, log=print,
                    blocks: int = 3, layers: int = 3, start_after: str = "",
                    on_stage_done=None) -> TensorCT:
@@ -274,11 +311,13 @@ def load_tensor_ct(ctx: FheContext, path: str) -> tuple[TensorCT, dict]:
 
 
 def resnet20_infer_clear(image: np.ndarray, weights: dict, relu=None, blocks: int = 3,
-                         layers: int = 3) -> np.ndarray:
+                         layers: int = 3, on_stage_done=None) -> np.ndarray:
     """The float64 shadow of the encrypted pipeline (the same layer math,
     the pool not averaged): the logits, or with `layers` < 3 the activations
     (w, w, ch) after the truncated pipeline.  `relu` replaces the exact
-    max(0, x), e.g. by the sign composite the encrypted pipeline applies."""
+    max(0, x), e.g. by the sign composite the encrypted pipeline applies.
+    `on_stage_done(name, acts)` is called after each stage of stage_names
+    with its output: (w, w, ch) activations, the pool's the logits."""
     relu = relu or (lambda v: np.maximum(v, 0.0))
 
     def conv(img, w4, stride):
@@ -302,7 +341,9 @@ def resnet20_infer_clear(image: np.ndarray, weights: dict, relu=None, blocks: in
         a = p.weight / np.sqrt(p.var + 1e-5)
         return img * a + (p.bias - a * p.mean)
 
+    done = on_stage_done or (lambda name, acts: None)
     x = relu(bnorm(conv(image, weights["conv1"], 1), weights["bn1"]))
+    done("stem", x)
     for layer in (1, 2, 3)[:layers]:
         for blk in range(blocks):
             pre = f"layer{layer}_{blk}"
@@ -314,7 +355,10 @@ def resnet20_infer_clear(image: np.ndarray, weights: dict, relu=None, blocks: in
                 x_skip = bnorm(conv(x_skip, weights[f"{pre}_downsample_0"], 2),
                                weights[f"{pre}_downsample_1"])
             x = relu(xm + x_skip)
+            done(f"l{layer}b{blk}", x)
     if layers < 3:
         return x
     sums = x.sum(axis=(0, 1))
-    return weights["fc_weight"] @ sums + weights["fc_bias"]
+    logits = weights["fc_weight"] @ sums + weights["fc_bias"]
+    done("pool", logits)
+    return logits
